@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA card.
+
+  python3 chip_smoke.py           # every phase; exits non-zero on any failure
+  python3 chip_smoke.py --quick   # device, build, kernels against plain at full width
+
+Phases, one JSON line each:
+  1. device   the card, its count, and nvidia-smi's name and power limit
+  2. build    both CUDA kernels from src/repro_torch/csrc, nvcc seconds and ptxas report
+  3. kernels  each kernel against its plain PyTorch version on the card, at the
+              serve path's full-width shapes and at the CPU tests' shapes
+  4. path     the serve step on the card against the same step on the CPU,
+              from the same state, along 16 steps of a 2-layer model
+  5. serve    launch.serve.run at tinyllama-1.1b's full widths and depth
+              (random weights), RARO on and off, with the kernels' launch counts
+  6. times    device time per launch of each kernel and its plain version (CUDA
+              events, L2 flushed, the host's enqueue hidden behind a spin), the
+              host's enqueue time, and the least time the card could take
+  7. profile  torch.profiler over a few full-width RARO steps: the device's busy
+              share and the kernels and host ops that take the time
+Then the `kernels` line and, last, the `ok` line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.configs import tinyllama_1_1b  # noqa: E402
+from repro_torch.core import modes  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.quant_page.quant_page import quantize_pages  # noqa: E402
+from repro_torch.kernels.quant_page.ref import quant_pages_ref  # noqa: E402
+from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E402
+    tiered_decode_partial, tiered_decode_partial_plain)
+from repro_torch.kvcache import paged, tiers  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import base, registry  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TOL = 1e-5  # kernel against plain, both in f32 on the card
+
+STEPS = 32  # decode steps of each full-width serve run: 4 pages committed per sequence
+# the serve path's shapes at tinyllama-1.1b widths: batch 4, 32 heads over 4 KV
+# heads of 64, pages of 8 tokens, max(STEPS // 8 + 2, 4) = 6 logical pages
+FULL = dict(b=4, h=32, hk=4, d=64, p=8, mp=6)
+# tests/test_kernels.py::TestTieredAttention shapes: (B, MP, P, Hk, G, D)
+TEST_SHAPES = [(2, 6, 4, 2, 2, 16), (1, 4, 8, 1, 4, 32), (3, 8, 4, 4, 1, 64)]
+# tests/test_kernels.py::TestQuantPage shapes, and the serve path's (2B K and V pages)
+QUANT_SHAPES = [(8, 8, 4, 64), (4, 16, 4, 32), (2, 64, 2, 128), (1, 8, 8, 64)]
+
+KERNELS = {
+    "tiered_decode_partial": dict(
+        route="cuda", source="src/repro_torch/csrc/tiered_attention.cu",
+        replaces="src/repro/kernels/tiered_attention/tiered_attention.py:94"),
+    "quantize_pages": dict(
+        route="cuda", source="src/repro_torch/csrc/quant_page.cu",
+        replaces="src/repro/kernels/quant_page/quant_page.py:43"),
+}
+COUNTERS = {"tiered_decode_partial": tiered_decode_partial, "quantize_pages": quantize_pages}
+
+
+def check(ok, msg):
+    """Fail the run (a raise, which -O does not strip as it strips assert)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def emit(phase, **kw):
+    print(json.dumps({"phase": phase, **kw}), flush=True)
+
+
+def reset_counts():
+    for f in COUNTERS.values():
+        f.launches = 0
+
+
+def counts():
+    return {name: f.launches for name, f in COUNTERS.items()}
+
+
+# --------------------------------------------------------------------------
+# inputs
+# --------------------------------------------------------------------------
+def slot_table(rng, b, mp, n, valid_per_seq):
+    """(b, mp) int32: ``valid_per_seq`` distinct pool slots per row, -1 elsewhere."""
+    t = np.full((b, mp), -1, np.int32)
+    slots = rng.permutation(n)[: b * valid_per_seq].reshape(b, valid_per_seq)
+    for i in range(b):
+        t[i, rng.permutation(mp)[:valid_per_seq]] = slots[i]
+    return t
+
+
+def partial_inputs(rng, b, h, hk, d, p, mp, tier, pool_dtype, device, valid_per_seq=None):
+    """Random q, pools, scales and slot table for one tier's partial."""
+    n = max(b * mp, 8)
+    valid = mp - 2 if valid_per_seq is None else valid_per_seq
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    if tier == modes.TIER_BF16:
+        kv = [torch.tensor(rng.standard_normal((n, p, hk, d)).astype(np.float32)).to(pool_dtype)
+              for _ in range(2)]
+        sc = [torch.ones(n, hk) for _ in range(2)]
+    else:
+        dp = d if tier == modes.TIER_INT8 else d // 2
+        kv = [torch.tensor(rng.integers(-128, 128, (n, p, hk, dp)).astype(np.int8))
+              for _ in range(2)]
+        sc = [torch.tensor((rng.random((n, hk)) * 0.05 + 1e-3).astype(np.float32))
+              for _ in range(2)]
+    st = torch.tensor(slot_table(rng, b, mp, n, valid))
+    return [t.to(device) for t in (torch.tensor(q), kv[0], kv[1], sc[0], sc[1], st)]
+
+
+def partial_cost(args, tier):
+    """(bytes, flops) one launch needs for these inputs: q, the slot table, each
+    valid page of K and V (and its scales) read once, every output written once."""
+    q, kp, _, _, _, st = args
+    b, h, d = q.shape
+    _, p, hk, dp = kp.shape
+    n_valid = int((st >= 0).sum())
+    page_bytes = p * hk * dp * kp.element_size()
+    scale_bytes = 0 if tier == modes.TIER_BF16 else hk * 4
+    mp = st.shape[1]
+    reads = q.numel() * 4 + st.numel() * 4 + n_valid * 2 * (page_bytes + scale_bytes)
+    writes = 4 * (b * h * d + 2 * b * h + 2 * b * mp * h)
+    # per valid page and query head: P*D multiply-adds for the scores and P*D for P.V
+    return reads + writes, n_valid * h * 4 * p * d
+
+
+def quant_cost(x, tier):
+    n, p, hk, d = x.shape
+    out_elems = n * p * hk * (d if tier == modes.TIER_INT8 else d // 2)
+    bytes_ = x.numel() * x.element_size() + out_elems + n * hk * 4 + n * 4
+    # absmax, divide, round, clip, dequantize, two squared sums: ~8 per element
+    return bytes_, 8 * x.numel()
+
+
+def bound_ms(bytes_, flops):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# --------------------------------------------------------------------------
+# phases
+# --------------------------------------------------------------------------
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    report = build.build(["tiered_attention", "quant_page"])
+    emit("build", seconds=time.perf_counter() - t0, report=report)
+
+
+def _max_err(outs, refs, names):
+    errs = {}
+    for name, a, r in zip(names, outs, refs):
+        torch.testing.assert_close(a, r, atol=TOL, rtol=TOL, msg=lambda m: f"{name}: {m}")
+        errs[name] = float((a - r).abs().max()) if a.numel() else 0.0
+    return errs
+
+
+def check_partial(dev, full_only):
+    rng = np.random.default_rng(0)
+    cases = [("full", FULL["b"], FULL["h"], FULL["hk"], FULL["d"], FULL["p"], FULL["mp"])]
+    if not full_only:
+        cases += [(f"test{i}", b, hk * g, hk, d, p, mp)
+                  for i, (b, mp, p, hk, g, d) in enumerate(TEST_SHAPES)]
+    worst = 0.0
+    for label, b, h, hk, d, p, mp in cases:
+        for tier, pool_dtype in ((0, torch.float32), (0, torch.bfloat16),
+                                 (1, torch.int8), (2, torch.int8)):
+            args = partial_inputs(rng, b, h, hk, d, p, mp, tier, pool_dtype, dev)
+            out = tiered_decode_partial(*args, tier=tier)
+            torch.cuda.synchronize()
+            ref = tiered_decode_partial_plain(*args, tier=tier)
+            errs = _max_err(out, ref, ("o", "m", "l", "page_p", "page_m"))
+            skipped = args[5] < 0
+            check(bool((out[3][skipped] == 0).all()) and bool((out[4][skipped] == -1e30).all()),
+                  f"skipped pages must give page_p 0 and page_m -1e30 ({label}, tier {tier})")
+            worst = max(worst, *errs.values())
+            emit("kernels", kernel="tiered_decode_partial", shape=label, tier=tier,
+                 pool=str(pool_dtype).replace("torch.", ""), max_abs_err=errs)
+    return worst
+
+
+def check_quant(dev, full_only):
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for shape in QUANT_SHAPES[:1] if full_only else QUANT_SHAPES:
+        for tier in (modes.TIER_INT8, modes.TIER_INT4):
+            for dt in (torch.float32, torch.bfloat16):
+                x = torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dt)
+                x.view(-1)[:4] = torch.tensor([0.5, -1.5, 2.5, -3.5])  # exact .5 ties
+                x = x.to(dev)
+                q, s, e = quantize_pages(x, tier=tier)
+                torch.cuda.synchronize()
+                q_r, s_r, e_r = quant_pages_ref(x, tier=tier)
+                check(torch.equal(q, q_r), f"codes differ at {shape} tier {tier} {dt}")
+                check(torch.equal(s, s_r), f"scales differ at {shape} tier {tier} {dt}")
+                torch.testing.assert_close(e[:, 0], e_r, rtol=TOL, atol=0)
+                err = float((e[:, 0] - e_r).abs().max())
+                worst = max(worst, err)
+                emit("kernels", kernel="quantize_pages", shape=list(shape), tier=tier,
+                     dtype=str(dt).replace("torch.", ""), codes_equal=True, scales_equal=True,
+                     err_max_abs_err=err)
+    return worst
+
+
+def to_device(caches, dev):
+    return [paged.TieredKV(*[tuple(t.to(dev) for t in f) if isinstance(f, tuple) else f.to(dev)
+                             for f in c]) for c in caches]
+
+
+def phase_path(dev, steps=16, n_layers=2):
+    """The serve step on the card against the CPU, from the same state each step."""
+    cfg = serve.serve_cfg(n_layers=n_layers)
+    ccfg = serve.cache_config(cfg, steps, 4)
+    api = registry.get_api(cfg)
+    p_cpu = base.materialize(api.specs(), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    p_dev = base.tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab, (steps, 4, 1)).astype(np.int32)
+    worst = 0.0
+    for rcfg in (tiers.RAROConfig(enabled=True), tiers.RAROConfig(enabled=False)):
+        caches = [paged.init(ccfg, torch.float32, "cpu") for _ in range(cfg.n_layers)]
+        tiers_seen = set()
+        for t in range(steps):
+            tok, pos = torch.tensor(tokens[t]), torch.full((4,), t, dtype=torch.int32)
+            lg_c, next_c = serve.tiered_decode_step(p_cpu, caches, ccfg, rcfg, tok, pos, cfg)
+            lg_d, next_d = serve.tiered_decode_step(p_dev, to_device(caches, dev), ccfg, rcfg,
+                                                    tok.to(dev), pos.to(dev), cfg)
+            torch.testing.assert_close(lg_d.cpu(), lg_c, atol=1e-3, rtol=0)
+            worst = max(worst, float((lg_d.cpu() - lg_c).abs().max()))
+            for cc, cd in zip(next_c, next_d):
+                check(torch.equal(cd.tier.cpu(), cc.tier), f"tier table differs at step {t}")
+                check(torch.equal(cd.slot.cpu(), cc.slot), f"slot table differs at step {t}")
+                tiers_seen |= set(cc.tier.unique().tolist()) - {-1}
+            caches = next_c
+        emit("path", raro=rcfg.enabled, steps=steps, n_layers=n_layers,
+             logits_max_abs_err=worst, tiers=sorted(tiers_seen))
+    return worst
+
+
+def phase_serve(dev, cfg, steps, batch):
+    """launch.serve.run at full width, RARO on then off; the counts are set to 0
+    just before each run and read just after it."""
+    finite = []
+    step = serve.tiered_decode_step
+
+    def checked_step(*a, **kw):  # every step's logits must be finite
+        logits, caches = step(*a, **kw)
+        finite.append(torch.isfinite(logits).all())
+        return logits, caches
+
+    serve.tiered_decode_step = checked_step
+    runs = {}
+    try:
+        for raro in (True, False):
+            finite.clear()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            out = serve.run(steps=steps, batch=batch, raro_enabled=raro, cfg=cfg, quiet=True,
+                            device=dev)
+            torch.cuda.synchronize()
+            n = counts()
+            check(len(finite) == steps and bool(torch.stack(finite).all()), "non-finite logits")
+            want = 3 * cfg.n_layers * steps
+            check(n["tiered_decode_partial"] == want, f"partial launches {n}, want {want}")
+            check(n["quantize_pages"] >= 1, f"quantize_pages never launched: {n}")
+            check(all(math.isfinite(out[k]) for k in ("mean_prob_drift", "final_prob_drift")),
+                  f"drift is not finite: {out}")
+            if raro:
+                check(sum(v > 0 for v in out["tier_pages"]) >= 2,
+                      f"RARO left pages in fewer than two tiers: {out['tier_pages']}")
+            runs[raro] = n
+            emit("serve", arch=cfg.arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 steps=steps, batch=batch, raro=raro, result=out, launches=n,
+                 launches_per_step={k: v / steps for k, v in n.items()},
+                 max_memory_allocated=torch.cuda.max_memory_allocated())
+    finally:
+        serve.tiered_decode_step = step
+    return runs
+
+
+def phase_profile(dev, cfg, steps=4, batch=4):
+    """Where a full-width RARO step spends its time: torch.profiler over a short
+    run after a warm-up one. The device is busy for the summed duration of its
+    kernels and copies (one stream, so they do not overlap); the profiler's own
+    cost lengthens the wall time, so the busy share it gives is a lower bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
+                              torch.float32, dev)
+    serve.run(steps=2, batch=batch, cfg=cfg, params=params, quiet=True, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.run(steps=steps, batch=batch, cfg=cfg, params=params, quiet=True, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_ms, cpu_ms = {}, {}
+    for e in prof.events():
+        dur = e.time_range.elapsed_us() / 1e3
+        table = device_ms if e.device_type == DeviceType.CUDA else cpu_ms
+        table[e.name] = table.get(e.name, 0.0) + dur
+    busy = sum(device_ms.values())
+
+    def top(table, n=8):
+        return [[k, v / steps] for k, v in sorted(table.items(), key=lambda kv: -kv[1])[:n]]
+
+    emit("profile", arch=cfg.arch, raro=True, steps=steps, batch=batch,
+         wall_ms_per_step=wall_ms / steps,
+         device_busy_ms_per_step=busy / steps if busy else None,
+         device_busy_share=busy / wall_ms if busy else None,
+         top_device_ms_per_step=top(device_ms), top_host_inclusive_ms_per_step=top(cpu_ms))
+
+
+def time_launches(fn, n_iter=50, warmup=5):
+    """(device ms, host ms) per call. Each call is timed alone by CUDA events,
+    with the L2 cache flushed (a 256 MB write) before it. The card is first held
+    in a spin (``torch.cuda._sleep``) for about three times the host's time per
+    call, so the host enqueues the whole call behind it and the events time the
+    device's work only; the host's enqueue time is taken on its own clock."""
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = int(max((time.perf_counter() - t0) / warmup, 1e-4) * 3 * 2e9)  # clocks <= 2 GHz
+    device_ms = host_s = 0.0
+    for _ in range(n_iter):
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        t = time.perf_counter()
+        fn()
+        host_s += time.perf_counter() - t
+        b.record()
+        b.synchronize()
+        device_ms += a.elapsed_time(b)
+    return device_ms / n_iter, host_s * 1e3 / n_iter
+
+
+def phase_times(dev):
+    rng = np.random.default_rng(3)
+    out = {}
+    rows = []
+    # the three launches of one layer's decode step: tier 0 (an f32 pool, as the
+    # serve path holds it), int8 and int4, each with 4 of 6 pages valid per sequence
+    # (32 steps commit 4 pages)
+    for tier, dt in ((0, torch.float32), (1, torch.int8), (2, torch.int8)):
+        args = partial_inputs(rng, **FULL, tier=tier, pool_dtype=dt, device=dev, valid_per_seq=4)
+        ms, host_ms = time_launches(lambda: tiered_decode_partial(*args, tier=tier))
+        plain, plain_host_ms = time_launches(lambda: tiered_decode_partial_plain(*args, tier=tier))
+        bytes_, flops = partial_cost(args, tier)
+        rows.append(dict(ms=ms, plain_ms=plain, bytes=bytes_, flops=flops))
+        bnd, by = bound_ms(bytes_, flops)
+        emit("times", kernel="tiered_decode_partial", tier=tier, ms=ms, host_ms=host_ms,
+             plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_, flops=flops,
+             bound_ms=bnd, bound_by=by, library="none")
+    out["tiered_decode_partial"] = _mean_row(rows)
+    rows = []
+    # one _store_page: the K and V pages of a batch of 4, f32, as the serve path commits them
+    for tier in (modes.TIER_INT8, modes.TIER_INT4):
+        x = torch.tensor(rng.standard_normal(QUANT_SHAPES[0]).astype(np.float32)).to(dev)
+        ms, host_ms = time_launches(lambda: quantize_pages(x, tier=tier))
+        plain, plain_host_ms = time_launches(lambda: quant_pages_ref(x, tier=tier))
+        bytes_, flops = quant_cost(x, tier)
+        rows.append(dict(ms=ms, plain_ms=plain, bytes=bytes_, flops=flops))
+        bnd, by = bound_ms(bytes_, flops)
+        emit("times", kernel="quantize_pages", tier=tier, shape=list(x.shape), ms=ms,
+             host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
+             flops=flops, bound_ms=bnd, bound_by=by, library="none")
+    out["quantize_pages"] = _mean_row(rows)
+    return out
+
+
+def _mean_row(rows):
+    """One launch, averaged over the tiers timed: its times and its bound."""
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    bnd, by = bound_ms(mean["bytes"], mean["flops"])
+    return dict(ms=mean["ms"], plain_ms=mean["plain_ms"], bound_ms=bnd, bound_by=by)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="device, build, and each kernel against plain at full width only")
+    a = ap.parse_args()
+
+    phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    errs = {"tiered_decode_partial": check_partial(dev, a.quick),
+            "quantize_pages": check_quant(dev, a.quick)}
+    emit("kernels", max_abs_err=errs)
+    if not a.quick:
+        phase_path(dev)
+        runs = phase_serve(dev, tinyllama_1_1b.CONFIG, STEPS, 4)
+        times = phase_times(dev)  # before the profiler, whose cost outlasts its window
+        phase_profile(dev, tinyllama_1_1b.CONFIG)
+        print(json.dumps({"kernels": [
+            dict(name=k, **KERNELS[k], launches=runs[True][k], max_abs_err=errs[k],
+                 ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],
+                 bound_by=times[k]["bound_by"], library_ms=None)
+            for k in KERNELS]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,123 @@
+"""Shared layer primitives: norms, rotary embeddings, MLPs, embeddings.
+
+Counterpart of ``repro.models.layers``. Parameters are dicts of tensors in
+the reference's layout (``x @ W``). Mixed dtypes follow JAX's promotion:
+``bf16 * f32`` is f32 in both frameworks, but torch refuses a ``bf16 @ f32``
+product, so :func:`matmul` casts both sides to the promoted dtype first.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.base import ParamSpec
+
+
+def matmul(x, w):
+    """``x @ w`` in the dtype JAX's promotion gives the pair."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_specs(d: int) -> dict:
+    return {"scale": ParamSpec((d,), ("embed",), init="ones")}
+
+
+def rmsnorm(p, x, eps: float = 1e-6):
+    """Normalized in f32, rounded back to x's dtype, then times the scale
+    (which promotes: a bf16 x with f32 params comes out f32)."""
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * p["scale"]
+
+
+def layernorm_specs(d: int) -> dict:
+    return {
+        "scale": ParamSpec((d,), ("embed",), init="ones"),
+        "bias": ParamSpec((d,), ("embed",), init="zeros"),
+    }
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * p["scale"] + p["bias"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_freqs(d_head: int, theta: float = 10000.0, device=None):
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32, device=device) / d_head
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)  # (Dh/2,)
+    ang = positions[..., None].float() * freqs  # (..., S, Dh/2)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., : dh // 2], x[..., dh // 2 :]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_specs(d: int, f: int, gated: bool = True) -> dict:
+    s = {
+        "w_in": ParamSpec((d, f), ("embed", "ff"), init="scaled"),
+        "w_out": ParamSpec((f, d), ("ff", "embed"), init="scaled"),
+    }
+    if gated:
+        s["w_gate"] = ParamSpec((d, f), ("embed", "ff"), init="scaled")
+    return s
+
+
+def _act(x, act: str):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
+
+
+def mlp(p, x, act: str = "silu"):
+    h = matmul(x, p["w_in"])
+    if "w_gate" in p:
+        h = h * _act(matmul(x, p["w_gate"]), act)
+    else:
+        h = _act(h, act)
+    return matmul(h, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head (padded vocab, as the reference pads for sharding)
+# ---------------------------------------------------------------------------
+def padded_vocab(vocab: int, multiple: int = 256) -> int:
+    return -(-vocab // multiple) * multiple
+
+
+def embedding_specs(vocab: int, d: int) -> dict:
+    return {"table": ParamSpec((padded_vocab(vocab), d), ("vocab", "embed"))}
+
+
+def embed(p, tokens):
+    return p["table"][tokens]
+
+
+def lm_logits(p, x, true_vocab: int):
+    """Tied-embedding head; padded tail masked to -1e9."""
+    logits = matmul(x, p["table"].T)
+    pad = logits.shape[-1] - true_vocab
+    if pad:
+        mask = torch.zeros(logits.shape[-1], dtype=logits.dtype, device=logits.device)
+        mask[true_vocab:] = -1e9
+        logits = logits + mask
+    return logits
