@@ -6,18 +6,26 @@
 
 Phases, one JSON line each:
   1. device   the card, its count, and nvidia-smi's name and power limit
-  2. build    both CUDA kernels from src/repro_torch/csrc, nvcc seconds and ptxas report
+  2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds and
+              ptxas report
   3. kernels  each kernel against its plain PyTorch version on the card, at the
-              serve path's full-width shapes and at the CPU tests' shapes
-  4. path     the serve step on the card against the same step on the CPU,
-              from the same state, along 16 steps of a 2-layer model
+              serve and prefill paths' full-width shapes and at the CPU tests' shapes
+  4. path     the tiered serve step on the card against the same step on the CPU,
+              from the same state, along 16 steps of a 2-layer model; then
+              make_prefill and 8 make_serve_step steps the same way, at kv_bits
+              16, 8 and 4
   5. serve    launch.serve.run at tinyllama-1.1b's full widths and depth
               (random weights), RARO on and off, with the kernels' launch counts
-  6. times    device time per launch of each kernel and its plain version (CUDA
+  6. prefill  make_prefill at tinyllama-1.1b's full widths and depth, batch 4,
+              2048-token prompts, then 32 make_serve_step steps, at kv_bits 16, 8
+              and 4: prefill ms, prompt tokens/s, decode ms/step, launch counts
+  7. times    device time per launch of each kernel and its plain version (CUDA
               events, L2 flushed, the host's enqueue hidden behind a spin), the
-              host's enqueue time, and the least time the card could take
-  7. profile  torch.profiler over a few full-width RARO steps: the device's busy
-              share and the kernels and host ops that take the time
+              host's enqueue time, the least time the card could take, and for
+              flash attention one PyTorch call that computes the same function
+  8. profile  torch.profiler over a few full-width RARO steps, and over one
+              full-width prefill: the device's busy share and the kernels and host
+              ops that take the time
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -39,17 +47,24 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import tinyllama_1_1b  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
+    flash_attention_fwd, flash_attention_fwd_plain)
 from repro_torch.kernels.quant_page.quant_page import quantize_pages  # noqa: E402
 from repro_torch.kernels.quant_page.ref import quant_pages_ref  # noqa: E402
 from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E402
     tiered_decode_partial, tiered_decode_partial_plain)
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import base, registry  # noqa: E402
+from repro_torch.models import base, registry, transformer  # noqa: E402
+from repro_torch.serving import serve_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 TOL = 1e-5  # kernel against plain, both in f32 on the card
+# flash attention against its plain version: 1e-5 in f32; 2e-2 in bf16, where
+# both round p and each tile's P.V to bf16 but at other points of the sums
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LOGITS_TOL = 1e-3  # a step on the card against the same step on the CPU
 
 STEPS = 32  # decode steps of each full-width serve run: 4 pages committed per sequence
 # the serve path's shapes at tinyllama-1.1b widths: batch 4, 32 heads over 4 KV
@@ -60,6 +75,15 @@ TEST_SHAPES = [(2, 6, 4, 2, 2, 16), (1, 4, 8, 1, 4, 32), (3, 8, 4, 4, 1, 64)]
 # tests/test_kernels.py::TestQuantPage shapes, and the serve path's (2B K and V pages)
 QUANT_SHAPES = [(8, 8, 4, 64), (4, 16, 4, 32), (2, 64, 2, 128), (1, 8, 8, 64)]
 
+PROMPT = 2048  # tinyllama-1.1b's published context
+# the prefill's attention at tinyllama-1.1b widths: (B, Sq, Sk, H, Hk, D, causal)
+FLASH_FULL = (4, PROMPT, PROMPT, 32, 4, 64, True)
+# tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
+# not multiples of the kernel's 64-row tiles, with GQA and no causal mask
+FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
+                (2, 33, 95, 4, 1, 16, False), (1, 257, 300, 2, 2, 128, True),
+                (3, 100, 170, 8, 2, 64, False)]
+
 KERNELS = {
     "tiered_decode_partial": dict(
         route="cuda", source="src/repro_torch/csrc/tiered_attention.cu",
@@ -67,8 +91,12 @@ KERNELS = {
     "quantize_pages": dict(
         route="cuda", source="src/repro_torch/csrc/quant_page.cu",
         replaces="src/repro/kernels/quant_page/quant_page.py:43"),
+    "flash_attention_fwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash_attention.py:63"),
 }
-COUNTERS = {"tiered_decode_partial": tiered_decode_partial, "quantize_pages": quantize_pages}
+COUNTERS = {"tiered_decode_partial": tiered_decode_partial, "quantize_pages": quantize_pages,
+            "flash_attention_fwd": flash_attention_fwd}
 
 
 def check(ok, msg):
@@ -145,6 +173,23 @@ def quant_cost(x, tier):
     return bytes_, 8 * x.numel()
 
 
+def flash_inputs(rng, b, sq, sk, h, hk, d, dtype, device):
+    """Random q (B, Sq, H, D) and k, v (B, Sk, Hk, D) in ``dtype``."""
+    return [torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(device)
+            for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d))]
+
+
+def flash_cost(q, k, causal=True):
+    """(bytes, flops) of one launch: q, k, v read once and o written once; per
+    (query, key) pair the mask keeps, D multiply-adds for the score and D for
+    P.V, at 2 operations each."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bytes_, 4 * d * b * h * pairs
+
+
 def bound_ms(bytes_, flops):
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -167,7 +212,7 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = build.build(["tiered_attention", "quant_page"])
+    report = build.build(["tiered_attention", "quant_page", "flash_attention"])
     emit("build", seconds=time.perf_counter() - t0, report=report)
 
 
@@ -226,6 +271,40 @@ def check_quant(dev, full_only):
     return worst
 
 
+def check_flash(dev, full_only):
+    """The kernel against its plain version (with the kernel's 64-key blocks,
+    so that both round p and each block's P.V at the same points), on both
+    layouts it takes; a tail mask (sk_valid < Sk) on the reference's layout."""
+    rng = np.random.default_rng(4)
+    cases = [("full", FLASH_FULL, torch.float32)]
+    if not full_only:
+        cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
+                  for dt in (torch.float32, torch.bfloat16)]
+    worst = {}
+    for label, (b, sq, sk, h, hk, d, causal), dt in cases:
+        q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
+        heads_first = [t.transpose(1, 2).reshape(-1, t.shape[1], d) for t in (q, k, v)]
+        sk_valid = sk - 5 if label != "full" else sk
+        outs = [flash_attention_fwd(q, k, v, causal=causal),
+                flash_attention_fwd(*heads_first, sk_valid=sk_valid, causal=causal)]
+        torch.cuda.synchronize()
+        refs = [flash_attention_fwd_plain(q, k, v, causal=causal, block_k=64),
+                flash_attention_fwd_plain(*heads_first, sk_valid=sk_valid, causal=causal,
+                                          block_k=64)]
+        errs = {}
+        for name, o, r in zip(("bshd", "bhsd_tail"), outs, refs):
+            check(o.dtype == dt and o.shape == r.shape, f"{label} {name}: {o.dtype} {o.shape}")
+            torch.testing.assert_close(o.float(), r.float(), atol=FLASH_TOL[dt],
+                                       rtol=FLASH_TOL[dt], msg=lambda m: f"{label} {name}: {m}")
+            errs[name] = float((o.float() - r.float()).abs().max())
+        dname = str(dt).replace("torch.", "")
+        worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+        emit("kernels", kernel="flash_attention_fwd", shape=label,
+             b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], dtype=dname, sk_valid=sk_valid,
+             tol=FLASH_TOL[dt], max_abs_err=errs)
+    return worst
+
+
 def to_device(caches, dev):
     return [paged.TieredKV(*[tuple(t.to(dev) for t in f) if isinstance(f, tuple) else f.to(dev)
                              for f in c]) for c in caches]
@@ -260,6 +339,146 @@ def phase_path(dev, steps=16, n_layers=2):
     return worst
 
 
+class RecordLogits:
+    """Within the block, every ``transformer.prefill`` and ``decode_step`` call
+    (which the registry's entries, and so make_prefill and make_serve_step,
+    reach) appends its logits to ``self.logits``."""
+
+    def __init__(self):
+        self.logits = []
+        self.saved = {}
+
+    def __enter__(self):
+        for name in ("prefill", "decode_step"):
+            fn = self.saved[name] = getattr(transformer, name)
+            setattr(transformer, name, self._wrap(fn))
+        return self
+
+    def _wrap(self, fn):
+        def recorded(*a, **kw):
+            logits, cache = fn(*a, **kw)
+            self.logits.append(logits)
+            return logits, cache
+        return recorded
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(transformer, name, fn)
+
+
+def pad_cache(cache, extra):
+    """A prefill cache (exactly as long as the prompt; the reference decodes at
+    pos % S) lengthened by ``extra`` positions: zero values or codes, scale ones.
+    This caller's choice lets the decode steps follow the prompt."""
+    return {n: torch.cat([t, (torch.ones_like if n.endswith("scale") else torch.zeros_like)(
+        t[:, :, :extra])], dim=2) for n, t in cache.items()}
+
+
+def same_tokens(tok_d, tok_c, logits_c):
+    """Equal greedy tokens, except in a row whose two best logits on the CPU lie
+    within LOGITS_TOL: there the card may rightly pick the other."""
+    top2 = torch.topk(logits_c[:, -1].float(), 2, dim=-1).values
+    near_tie = (top2[:, 0] - top2[:, 1]) <= LOGITS_TOL
+    return bool(((tok_d.cpu() == tok_c) | near_tie).all()), int(near_tie.sum())
+
+
+def phase_prefill_path(dev, steps=8, n_layers=2, prompt=64, batch=4):
+    """make_prefill and make_serve_step on the card against the CPU, from the
+    same state each step: logits within LOGITS_TOL, greedy tokens equal."""
+    base_cfg = serve.serve_cfg(n_layers=n_layers)
+    api = registry.get_api(base_cfg)
+    p_cpu = base.materialize(api.specs(), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    p_dev = base.tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(5)
+    tokens = torch.tensor(rng.integers(0, base_cfg.vocab, (batch, prompt)).astype(np.int32))
+    for bits in (16, 8, 4):
+        cfg = base_cfg.with_(kv_bits=bits)
+        prefill, step = serve_step.make_prefill(cfg), serve_step.make_serve_step(cfg)
+        worst, near_ties = 0.0, 0
+        reset_counts()
+        with RecordLogits() as rec:
+            tok_c, cache_c = prefill(p_cpu, {"tokens": tokens})
+            tok_d, _ = prefill(p_dev, {"tokens": tokens.to(dev)})
+        n = counts()
+        check(n["flash_attention_fwd"] == n_layers, f"prefill launches {n}, want {n_layers}")
+        cache_c = pad_cache(cache_c, steps)
+        for t in range(steps + 1):
+            lg_c, lg_d = rec.logits[-2], rec.logits[-1].cpu()
+            torch.testing.assert_close(lg_d, lg_c, atol=LOGITS_TOL, rtol=0)
+            worst = max(worst, float((lg_d - lg_c).abs().max()))
+            ok, ties = same_tokens(tok_d, tok_c, lg_c)
+            check(ok, f"greedy tokens differ at kv_bits {bits}, step {t}")
+            near_ties += ties
+            if t == steps:
+                break
+            pos = torch.full((batch,), prompt + t, dtype=torch.int32)
+            with rec:
+                nxt_c, next_cache = step(p_cpu, cache_c, tok_c[:, None], pos)
+                tok_d, _ = step(p_dev, {k: v.to(dev) for k, v in cache_c.items()},
+                                tok_c[:, None].to(dev), pos.to(dev))
+            tok_c, cache_c = nxt_c, next_cache
+        emit("path", path="prefill+serve_step", kv_bits=bits, prompt=prompt, steps=steps,
+             n_layers=n_layers, logits_max_abs_err=worst, near_ties=near_ties,
+             flash_launches=n["flash_attention_fwd"])
+
+
+def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
+    """The prefill path at full width: make_prefill over ``batch`` random
+    prompts, then ``steps`` make_serve_step steps from the padded cache, at each
+    kv_bits. The counts are set to 0 just before the three runs and read just
+    after them; each run's own counts are checked too."""
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
+                              torch.float32, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen, dtype=torch.int32,
+                           device=dev)
+    # warm-up (cuBLAS handles, the kernels' first load), outside the counted runs
+    tok, cache = serve_step.make_prefill(cfg)(params, {"tokens": tokens[:, :128]})
+    serve_step.make_serve_step(cfg)(params, pad_cache(cache, 1), tok[:, None],
+                                    torch.full((batch,), 128, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    total = dict.fromkeys(COUNTERS, 0)
+    for bits in (16, 8, 4):
+        c = cfg.with_(kv_bits=bits)
+        prefill, step = serve_step.make_prefill(c), serve_step.make_serve_step(c)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with RecordLogits() as rec:
+            t0 = time.perf_counter()
+            tok, cache = prefill(params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            n_prefill = counts()
+            cache = pad_cache(cache, steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(steps):
+                pos = torch.full((batch,), prompt + t, dtype=torch.int32, device=dev)
+                tok, cache = step(params, cache, tok[:, None], pos)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+        n = counts()
+        for k in COUNTERS:
+            total[k] += n[k]
+        check(len(rec.logits) == steps + 1
+              and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
+              f"non-finite logits at kv_bits {bits}")
+        want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0,
+                "quantize_pages": 0}
+        check(n_prefill == want and n == want,
+              f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
+        check(cache["k"].shape[2] == prompt + steps
+              and cache["k"].dtype == (torch.int8 if bits < 16 else torch.float32),
+              f"cache {cache['k'].shape} {cache['k'].dtype} at kv_bits {bits}")
+        emit("prefill", arch=cfg.arch, n_layers=cfg.n_layers, d_model=cfg.d_model, batch=batch,
+             prompt=prompt, kv_bits=bits, steps=steps, prefill_ms=prefill_s * 1e3,
+             prompt_tokens_per_s=batch * prompt / prefill_s,
+             decode_ms_per_step=decode_s * 1e3 / steps, launches=n,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+    return total
+
+
 def phase_serve(dev, cfg, steps, batch):
     """launch.serve.run at full width, RARO on then off; the counts are set to 0
     just before each run and read just after it."""
@@ -286,6 +505,7 @@ def phase_serve(dev, cfg, steps, batch):
             want = 3 * cfg.n_layers * steps
             check(n["tiered_decode_partial"] == want, f"partial launches {n}, want {want}")
             check(n["quantize_pages"] >= 1, f"quantize_pages never launched: {n}")
+            check(n["flash_attention_fwd"] == 0, f"the decode loop ran flash attention: {n}")
             check(all(math.isfinite(out[k]) for k in ("mean_prob_drift", "final_prob_drift")),
                   f"drift is not finite: {out}")
             if raro:
@@ -301,22 +521,18 @@ def phase_serve(dev, cfg, steps, batch):
     return runs
 
 
-def phase_profile(dev, cfg, steps=4, batch=4):
-    """Where a full-width RARO step spends its time: torch.profiler over a short
-    run after a warm-up one. The device is busy for the summed duration of its
-    kernels and copies (one stream, so they do not overlap); the profiler's own
-    cost lengthens the wall time, so the busy share it gives is a lower bound."""
+def profiled(fn):
+    """(wall ms, device ms by name, host ms by name, inclusive) of one call of
+    ``fn`` under torch.profiler. The device is busy for the summed duration of
+    its kernels and copies (one stream, so they do not overlap); the profiler's
+    own cost lengthens the wall time, so the busy share it gives is a lower
+    bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    api = registry.get_api(cfg)
-    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
-                              torch.float32, dev)
-    serve.run(steps=2, batch=batch, cfg=cfg, params=params, quiet=True, device=dev)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve.run(steps=steps, batch=batch, cfg=cfg, params=params, quiet=True, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device_ms, cpu_ms = {}, {}
@@ -324,16 +540,46 @@ def phase_profile(dev, cfg, steps=4, batch=4):
         dur = e.time_range.elapsed_us() / 1e3
         table = device_ms if e.device_type == DeviceType.CUDA else cpu_ms
         table[e.name] = table.get(e.name, 0.0) + dur
+    return wall_ms, device_ms, cpu_ms
+
+
+def top(table, per, n=8):
+    return [[k, v / per] for k, v in sorted(table.items(), key=lambda kv: -kv[1])[:n]]
+
+
+def phase_profile(dev, cfg, steps=4, batch=4):
+    """Where a full-width RARO step spends its time: a short run after a warm-up one."""
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
+                              torch.float32, dev)
+    serve.run(steps=2, batch=batch, cfg=cfg, params=params, quiet=True, device=dev)
+    torch.cuda.synchronize()
+    wall_ms, device_ms, cpu_ms = profiled(lambda: serve.run(
+        steps=steps, batch=batch, cfg=cfg, params=params, quiet=True, device=dev))
     busy = sum(device_ms.values())
-
-    def top(table, n=8):
-        return [[k, v / steps] for k, v in sorted(table.items(), key=lambda kv: -kv[1])[:n]]
-
-    emit("profile", arch=cfg.arch, raro=True, steps=steps, batch=batch,
+    emit("profile", path="serve", arch=cfg.arch, raro=True, steps=steps, batch=batch,
          wall_ms_per_step=wall_ms / steps,
          device_busy_ms_per_step=busy / steps if busy else None,
          device_busy_share=busy / wall_ms if busy else None,
-         top_device_ms_per_step=top(device_ms), top_host_inclusive_ms_per_step=top(cpu_ms))
+         top_device_ms_per_step=top(device_ms, steps),
+         top_host_inclusive_ms_per_step=top(cpu_ms, steps))
+
+
+def phase_profile_prefill(dev, cfg, batch=4, prompt=PROMPT):
+    """Where one full-width prefill (kv_bits 16) spends its time, after a warm-up one."""
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
+                              torch.float32, dev)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    prefill = serve_step.make_prefill(cfg)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    wall_ms, device_ms, cpu_ms = profiled(lambda: prefill(params, {"tokens": tokens}))
+    busy = sum(device_ms.values())
+    emit("profile", path="prefill", arch=cfg.arch, batch=batch, prompt=prompt, wall_ms=wall_ms,
+         device_busy_ms=busy or None, device_busy_share=busy / wall_ms if busy else None,
+         top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 10))
 
 
 def time_launches(fn, n_iter=50, warmup=5):
@@ -394,6 +640,32 @@ def phase_times(dev):
              host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
              flops=flops, bound_ms=bnd, bound_by=by, library="none")
     out["quantize_pages"] = _mean_row(rows)
+
+    # one launch of the prefill's attention at full width, f32 as the path runs it
+    b, sq, sk, h, hk, d, causal = FLASH_FULL
+    q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.float32, dev)
+    ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
+    plain, plain_host_ms = time_launches(
+        lambda: flash_attention_fwd_plain(q, k, v, causal=causal), n_iter=5, warmup=2)
+    # the yardstick, never called by the port: PyTorch's own fused attention on
+    # the same f32 tensors in its (B, H, S, D) layout
+    ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                                enable_gqa=True)
+
+    lib_ms, lib_host_ms = time_launches(library, n_iter=20)
+    lib_err = float((library().transpose(1, 2) - flash_attention_fwd(q, k, v, causal=causal))
+                    .abs().max())
+    bytes_, flops = flash_cost(q, k, causal)
+    bnd, by = bound_ms(bytes_, flops)
+    emit("times", kernel="flash_attention_fwd", shape=list(FLASH_FULL), dtype="float32", ms=ms,
+         host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_, flops=flops,
+         bound_ms=bnd, bound_by=by, library="torch.nn.functional.scaled_dot_product_attention",
+         library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
+    out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                                      library_ms=lib_ms)
     return out
 
 
@@ -414,17 +686,25 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     errs = {"tiered_decode_partial": check_partial(dev, a.quick),
-            "quantize_pages": check_quant(dev, a.quick)}
+            "quantize_pages": check_quant(dev, a.quick),
+            "flash_attention_fwd": check_flash(dev, a.quick)}
     emit("kernels", max_abs_err=errs)
     if not a.quick:
+        cfg = tinyllama_1_1b.CONFIG
         phase_path(dev)
-        runs = phase_serve(dev, tinyllama_1_1b.CONFIG, STEPS, 4)
+        phase_prefill_path(dev)
+        runs = phase_serve(dev, cfg, STEPS, 4)
+        launches = {k: runs[True][k] for k in ("tiered_decode_partial", "quantize_pages")}
+        launches["flash_attention_fwd"] = phase_prefill(dev, cfg)["flash_attention_fwd"]
         times = phase_times(dev)  # before the profiler, whose cost outlasts its window
-        phase_profile(dev, tinyllama_1_1b.CONFIG)
+        phase_profile(dev, cfg)
+        phase_profile_prefill(dev, cfg)
+        flash_err = errs["flash_attention_fwd"]
+        errs["flash_attention_fwd"] = max(flash_err.values())
         print(json.dumps({"kernels": [
-            dict(name=k, **KERNELS[k], launches=runs[True][k], max_abs_err=errs[k],
+            dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],
-                 bound_by=times[k]["bound_by"], library_ms=None)
+                 bound_by=times[k]["bound_by"], library_ms=times[k].get("library_ms"))
             for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

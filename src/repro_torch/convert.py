@@ -50,6 +50,13 @@ def params_from_numpy(tree, cfg, device=None):
     return out
 
 
+def cache_from_numpy(cache, device=None) -> dict:
+    """The reference's dense KV cache ({"k", "v"} of (L, B, S, Hk, Dh), and at
+    kv_bits < 16 the int8 codes with {"k_scale", "v_scale"} f32 scales) with
+    numpy leaves -> the port's, every dtype kept."""
+    return _tree(dict(cache), resolve_device(device))
+
+
 def tieredkv_from_numpy(leaves, device=None) -> TieredKV:
     """The reference's ``TieredKV`` with numpy leaves (a NamedTuple or a dict
     of its fields; ``free`` a sequence of three masks) -> the port's."""

@@ -45,7 +45,8 @@ def lib_path(name: str) -> Path:
 def build(names) -> dict[str, dict]:
     """Compile every named kernel whose library is missing, one nvcc process
     per source, all started together. Returns, per name built, the seconds
-    it took and ptxas's register/spill report. Raises if any build fails."""
+    it took and ptxas's report: each entry function (mangled) with its
+    registers and spills. Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -67,7 +68,8 @@ def build(names) -> dict[str, dict]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
         report[name] = {"seconds": time.perf_counter() - t0,
                         "ptxas": [ln.strip() for ln in log.splitlines()
-                                  if "registers" in ln or "spill" in ln]}
+                                  if "entry function" in ln or "registers" in ln
+                                  or "spill" in ln]}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report

@@ -1,0 +1,149 @@
+"""Flash-attention forward: the prefill's attention.
+
+Counterpart of ``repro.kernels.flash_attention.flash_attention``; the kernel
+is ``csrc/flash_attention.cu``. Online softmax in f32 over KV blocks, an
+optional causal mask (top-left aligned: query i sees keys 0..i), a tail mask
+at ``sk_valid``, and GQA by ``h // g`` on the flat head index. CUDA tensors
+go to the kernel; CPU tensors to the plain version below; any other device
+raises.
+
+Two layouts are taken: the reference kernel's (B·H, S, D), and the model's
+(B, S, H, D), which the kernel reads in place through strides (``ops.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is compiled for
+
+_fn = None
+
+
+def _heads_first(x):
+    """(B, S, H, D) -> (B·H, S, D)."""
+    b, s, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, s, d)
+
+
+def flash_attention_fwd_plain(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
+    """Plain PyTorch version of the kernel, with the Pallas kernel's roundings:
+    q cast to f32 and then scaled by D^-0.5, masked scores -1e30, ``p`` cast to
+    v's dtype before P·V (whose product is in v's dtype, as the reference's
+    ``lax.dot``), the finalize dividing by max(l, 1e-30), the output in q's
+    dtype. The online softmax is carried over KV blocks of ``block_k``; query
+    rows are independent, so ``block_q`` does not change the result."""
+    if q.dim() == 4:
+        b, sq, h, _ = q.shape
+        o = flash_attention_fwd_plain(_heads_first(q), _heads_first(k), _heads_first(v),
+                                      sk_valid=sk_valid, causal=causal, block_q=block_q,
+                                      block_k=block_k)
+        return o.reshape(b, h, sq, -1).transpose(1, 2)
+    bh, sq, d = q.shape
+    bh_kv, sk, _ = k.shape
+    g = bh // bh_kv
+    dv = v.shape[-1]
+    sk_valid = sk if sk_valid is None else sk_valid
+    bk = min(block_k, sk)
+    qg = (q.float() * d**-0.5).reshape(bh_kv, g, sq, d)  # flat head h reads KV head h // g
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh_kv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((bh_kv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((bh_kv, g, sq, dv), dtype=torch.float32, device=q.device)
+    for j0 in range(0, sk, bk):
+        kj, vj = k[:, None, j0:j0 + bk], v[:, None, j0:j0 + bk]
+        s = qg @ kj.float().transpose(-1, -2)  # (BH_kv, G, Sq, bk)
+        k_pos = j0 + torch.arange(kj.shape[2], device=q.device)[None, :]
+        mask = k_pos < sk_valid
+        if causal:
+            mask = mask & (q_pos >= k_pos)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + (p.to(v.dtype) @ vj).float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(bh, sq, dv).to(q.dtype)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = build.load("flash_attention").flash_attention_fwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def _check(q, k, v, sk_valid):
+    """q, k, v as the kernel sees them: (B, Sq, H, D) and (B, Sk, Hk, D)."""
+    for name, t in (("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}, q {q.dtype} on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the kernel takes f32 or bf16, got {q.dtype}")
+    b, sq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k and v must be (B, Sk, Hk, D) of one shape beside q {tuple(q.shape)}; "
+                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
+    if sq == 0 or not 1 <= sk_valid <= k.shape[1]:
+        raise ValueError(f"need Sq >= 1 and 1 <= sk_valid ({sk_valid}) <= Sk ({k.shape[1]})")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the head dim of q, k and v must be contiguous")
+
+
+def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
+    """Flash-attention forward.
+
+    q: (B·H, Sq, D); k, v: (B·Hk, Sk, D) -> (B·H, Sq, D), the reference's
+    layout; or q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) -> (B, Sq, H, D),
+    read in place. f32 or bf16, D in HEAD_DIMS on the card; the output is in
+    q's dtype. Keys at positions >= ``sk_valid`` (default Sk) are masked. Sq
+    and Sk are any lengths: the kernel masks its ragged tiles itself.
+
+    On the card the kernel's tiles are its own (64 query rows by 64 keys);
+    ``block_q`` and ``block_k`` are the plain version's blocks, as they were
+    the Pallas grid's, and change the result only by rounding.
+    ``flash_attention_fwd.launches`` counts kernel launches.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, sk_valid=sk_valid, causal=causal,
+                                         block_q=block_q, block_k=block_k)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
+    if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
+        raise ValueError(f"need q, k, v all (B·H, S, D) or all (B, S, H, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    o = torch.empty(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
+    # the kernel's view of every operand is (B, S, H, D); (B·H, S, D) is B = 1
+    views = [t if t.dim() == 4 else t.unsqueeze(0).transpose(1, 2) for t in (q, k, v, o)]
+    b, sq, h, d = views[0].shape
+    _, sk, hk, _ = views[1].shape
+    sk_valid = sk if sk_valid is None else sk_valid
+    _check(*views[:3], sk_valid)
+    strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
+    fn = _kernel()
+    with torch.cuda.device(q.device):
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides, b, h, hk, sq, sk,
+                d, sk_valid, int(causal), int(q.dtype == torch.bfloat16), d**-0.5,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
+    flash_attention_fwd.launches += 1
+    return o
+
+
+flash_attention_fwd.launches = 0

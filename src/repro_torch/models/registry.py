@@ -1,6 +1,7 @@
 """Model registry: family dispatch (counterpart of ``repro.models.registry``).
 
-Only the dense family is ported; the others are in ROADMAP.md, queue 1.
+Only the dense family is ported, for serving (prefill, decode and the cache
+specs); the other families and ``loss_fn`` are in ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ _FAMILIES = {"dense": transformer}
 class ModelAPI:
     cfg: ModelConfig
     specs: Callable
+    prefill: Callable
     decode_step: Callable
+    init_cache_specs: Callable
 
 
 def get_api(cfg: ModelConfig) -> ModelAPI:
@@ -29,5 +32,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         specs=lambda: mod.specs(cfg),
+        prefill=lambda p, b: mod.prefill(p, b, cfg),
         decode_step=lambda p, c, t, pos: mod.decode_step(p, c, t, pos, cfg),
+        init_cache_specs=lambda batch, seq: mod.init_cache_specs(cfg, batch, seq),
     )

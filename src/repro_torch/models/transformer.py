@@ -1,11 +1,12 @@
-"""Dense decoder-only transformer family (llama-arch), decode path.
+"""Dense decoder-only transformer family (llama-arch), serving path.
 
 Counterpart of ``repro.models.transformer``: parameter specs, ``norm``,
-``qkv`` and the single-token ``decode_step`` over a dense f32/bf16 KV cache
-(the ``kv_bits == 16`` path that the serve loop's dense reference reaches).
-Layers are a Python list of per-layer parameter dicts instead of a stacked
-axis scanned by ``lax.scan``; the KV cache keeps the reference's stacked
-(L, B, S, Hk, Dh) layout.
+``qkv``, ``prefill`` (whose causal attention is the hand-written flash kernel
+on the card) and the single-token ``decode_step`` over a dense KV cache, f32
+or bf16 (``kv_bits`` 16) or int8 / packed int4 codes with per-token scales
+(``kv_bits`` 8 / 4, the RARO dense tier). Layers are a Python list of
+per-layer parameter dicts instead of a stacked axis scanned by ``lax.scan``;
+the KV cache keeps the reference's stacked (L, B, S, Hk, Dh) layout.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kvcache import quant
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
@@ -75,10 +78,99 @@ def specs(cfg: ModelConfig) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode over a KV cache
+# ---------------------------------------------------------------------------
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    return min(seq_len, cfg.window) if cfg.window else seq_len
+
+
+# --- RARO dense-tier quantized KV (kv_bits = 8 / 4) ------------------------
+def _kv_qmax(bits: int) -> float:
+    return 127.0 if bits == 8 else 7.0
+
+
+def quant_kv(x, bits: int):
+    """x: (..., dh) -> (q int8 (packed for 4-bit), scale (...,) f32)."""
+    x32 = x.float()
+    qmax = _kv_qmax(bits)
+    amax = torch.clamp(torch.amax(torch.abs(x32), dim=-1), min=1e-8)
+    # a tensor divisor: on CUDA, torch computes `tensor / python_scalar` as a
+    # multiply by the reciprocal, which can move the scale by an ulp
+    scale = amax / torch.full_like(amax, qmax)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -qmax, qmax).to(torch.int8)
+    if bits == 4:
+        q = quant.pack_int4(q)
+    return q, scale
+
+
+def dequant_kv(q, scale, bits: int, dtype):
+    if bits == 4:
+        q = quant.unpack_int4(q)
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
+    """Materialize with ``dtype=None``, so that int8 codes stay int8."""
+    s = cache_len(cfg, seq_len)
+    hk, dh = cfg.n_kv_heads, cfg.head_dim
+    if cfg.kv_bits == 16:
+        kv = ParamSpec((cfg.n_layers, batch, s, hk, dh),
+                       ("layers", None, None, "kv_heads", None), "zeros", cfg.dtype)
+        return {"k": kv, "v": kv}
+    dhq = dh if cfg.kv_bits == 8 else dh // 2
+    kv = ParamSpec((cfg.n_layers, batch, s, hk, dhq),
+                   ("layers", None, None, "kv_heads", None), "zeros", torch.int8)
+    sc = ParamSpec((cfg.n_layers, batch, s, hk),
+                   ("layers", None, None, "kv_heads"), "ones", torch.float32)
+    return {"k": kv, "v": kv, "k_scale": sc, "v_scale": sc}
+
+
+def prefill_attention(q, k, v, cfg: ModelConfig):
+    """Causal self-attention over the prompt: the flash kernel on the card when
+    the model has no window, else the plain blockwise attention (on the CPU,
+    as the reference computes it, and for sliding windows)."""
+    if cfg.window == 0 and q.device.type == "cuda":
+        return flash_ops.flash_attention(q, k, v, causal=True)
+    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.window)
+
+
+def prefill(params, batch, cfg: ModelConfig):
+    """Full-sequence pass that also materializes the KV cache.
+
+    batch: {"tokens": (B, S) int}. Returns (last-position logits (B, 1, V),
+    cache dict), the cache exactly ``cache_len(cfg, S)`` long.
+    """
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    positions = torch.arange(s, device=tokens.device)
+    ks, vs = [], []
+    for lp in params["layers"]:
+        xn = norm(cfg, lp["ln1"], x)
+        q, k, v = qkv(lp["attn"], xn, cfg, positions)
+        o = prefill_attention(q, k, v, cfg)
+        h = x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"])
+        x = h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
+        ks.append(k)
+        vs.append(v)
+    x = norm(cfg, params["ln_f"], x)
+    logits = L.lm_logits(params["embed"], x[:, -1:], cfg.vocab)
+    w = cache_len(cfg, s)
+    ks, vs = torch.stack(ks)[:, :, -w:], torch.stack(vs)[:, :, -w:]
+    if cfg.kv_bits == 16:
+        return logits, {"k": ks, "v": vs}
+    qk, sk = quant_kv(ks, cfg.kv_bits)
+    qv, sv = quant_kv(vs, cfg.kv_bits)
+    return logits, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+
+
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: (B,) absolute positions.
 
-    ``cache`` is {"k", "v"}: (L, B, S, Hk, Dh). The write index is
+    ``cache`` is {"k", "v"}: (L, B, S, Hk, Dh), and with kv_bits < 16 the
+    int8 (or packed int4, Dh/2) codes plus {"k_scale", "v_scale"}: (L, B, S,
+    Hk) per-token scales, dequantized on every read. The write index is
     ``pos % S`` (rolling buffer). Returns (logits (B, 1, V), new cache).
 
     The embedding is cast to ``cfg.dtype``; with bf16 and f32 parameters the
@@ -86,25 +178,34 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     it. (The reference's ``lax.scan`` refuses that dtype change of its carry,
     so at bf16 the reference is the unrolled loop; see ROADMAP.md.)
     """
-    if cfg.kv_bits != 16:
-        raise NotImplementedError("kv_bits < 16 decode is not ported yet (ROADMAP.md, queue 1)")
     b = tokens.shape[0]
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     s_cache = cache["k"].shape[2]
     widx = (pos % s_cache).long()
     bidx = torch.arange(b, device=tokens.device)
-    cache_len = torch.clamp(pos + 1, max=s_cache)
-    ks, vs = [], []
+    n_valid = torch.clamp(pos + 1, max=s_cache)
+    bits = cfg.kv_bits
+    new = {name: [] for name in cache}
     for i, lp in enumerate(params["layers"]):
         xn = norm(cfg, lp["ln1"], x)
         q, k, v = qkv(lp["attn"], xn, cfg, pos[:, None])
-        kc = cache["k"][i].index_put((bidx, widx), k[:, 0].to(cache["k"].dtype))
-        vc = cache["v"][i].index_put((bidx, widx), v[:, 0].to(cache["v"].dtype))
-        o = attn.decode_attention(q, kc, vc, cache_len)
+        if bits < 16:
+            (qk, sk), (qv, sv) = quant_kv(k[:, 0], bits), quant_kv(v[:, 0], bits)
+            writes = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+        else:
+            writes = {"k": k[:, 0], "v": v[:, 0]}
+        layer = {name: cache[name][i].index_put((bidx, widx), val.to(cache[name].dtype))
+                 for name, val in writes.items()}
+        if bits < 16:
+            k_full = dequant_kv(layer["k"], layer["k_scale"], bits, cfg.dtype)
+            v_full = dequant_kv(layer["v"], layer["v_scale"], bits, cfg.dtype)
+        else:
+            k_full, v_full = layer["k"], layer["v"]
+        o = attn.decode_attention(q, k_full, v_full, n_valid)
         h = x + L.matmul(o.reshape(b, 1, -1), lp["attn"]["wo"])
         x = h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
-        ks.append(kc)
-        vs.append(vc)
+        for name, t in layer.items():
+            new[name].append(t)
     x = norm(cfg, params["ln_f"], x)
     logits = L.lm_logits(params["embed"], x, cfg.vocab)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {name: torch.stack(ts) for name, ts in new.items()}

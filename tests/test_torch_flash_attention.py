@@ -1,0 +1,188 @@
+"""Parity of the port's flash attention (kernels/flash_attention) and
+``blockwise_attention`` with the JAX package's, on the CPU, where the wrapper
+takes the plain version.
+
+Tolerances: ``ops.flash_attention`` against the JAX one (its Pallas kernel in
+interpret mode, blocks of 32) at the shapes of ``tests/test_kernels.py``,
+2e-6 in f32 and 2e-2 in bf16, as the reference's own kernel test holds it
+(both round p to bf16 before P·V at bf16; the sums are taken in another
+order). ``blockwise_attention`` and the oracles within 1e-5.
+"""
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from repro.kernels.flash_attention.ops import flash_attention as j_flash_attention
+from repro.kernels.flash_attention.ref import flash_attention_ref as j_flash_ref
+from repro.models import attention as j_attn
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.models import attention
+from test_torch_parity import to_np
+
+# tests/test_kernels.py::TestFlashAttention.SHAPES: (B, Sq, Sk, H, Hk, D, causal)
+SHAPES = [
+    (2, 64, 64, 4, 4, 32, True),
+    (1, 128, 128, 8, 2, 64, True),
+    (2, 33, 95, 4, 1, 16, False),
+    (1, 257, 300, 2, 2, 128, True),
+]
+DTYPES = {"float32": (torch.float32, jnp.float32, 2e-6),
+          "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
+
+
+def qkv_inputs(seed, b, sq, sk, h, hk, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hk, d)).astype(np.float32),
+            rng.standard_normal((b, sk, hk, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_matches_reference(shape, dtype):
+    b, sq, sk, h, hk, d, causal = shape
+    tdt, jdt, tol = DTYPES[dtype]
+    q, k, v = qkv_inputs(0, b, sq, sk, h, hk, d)
+    oj = j_flash_attention(*(jnp.asarray(x, jdt) for x in (q, k, v)), causal=causal,
+                           block_q=32, block_k=32)
+    ot = flash_attention(*(torch.tensor(x).to(tdt) for x in (q, k, v)), causal=causal,
+                         block_q=32, block_k=32)
+    assert ot.shape == (b, sq, h, d) and ot.dtype == tdt
+    np.testing.assert_allclose(to_np(ot), to_np(oj), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_plain_layouts_and_blocks_agree_with_oracle(shape):
+    """The (B·H, S, D) layout, the (B, S, H, D) one and any block size give the
+    oracle's attention; ``sk_valid`` masks the keys beyond it."""
+    b, sq, sk, h, hk, d, causal = shape
+    q, k, v = (torch.tensor(x) for x in qkv_inputs(1, b, sq, sk, h, hk, d))
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(to_np(ref), np.asarray(j_flash_ref(q.numpy(), k.numpy(), v.numpy(),
+                                                                  causal=causal)),
+                               atol=1e-5, rtol=1e-5)
+    for bq, bk in ((128, 128), (16, 48)):
+        o4 = fa.flash_attention_fwd(q, k, v, causal=causal, block_q=bq, block_k=bk)
+        o3 = fa.flash_attention_fwd(fa._heads_first(q), fa._heads_first(k), fa._heads_first(v),
+                                    causal=causal, block_q=bq, block_k=bk)
+        np.testing.assert_allclose(to_np(o4), to_np(ref), atol=1e-5, rtol=1e-5)
+        np.testing.assert_array_equal(to_np(fa._heads_first(o4)), to_np(o3))
+    sv = sk - 7
+    o = fa.flash_attention_fwd(q, k, v, sk_valid=sv, causal=causal, block_k=32)
+    r = flash_attention_ref(q, k[:, :sv], v[:, :sv], causal=causal)
+    np.testing.assert_allclose(to_np(o), to_np(r), atol=1e-5, rtol=1e-5)
+
+
+def blockwise_inputs():
+    rng = np.random.default_rng(2)
+    b, sq, sk, h, hk, d = 2, 9, 14, 4, 2, 16
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k, v = rng.standard_normal((2, b, sk, hk, d)).astype(np.float32)
+    return q, k, v, np.array([11, 14], np.int32)
+
+
+BLOCKWISE_CASES = {"causal": dict(causal=True),
+                   "offset_kv_len": dict(causal=True, q_offset=5, kv_len=True),
+                   "kv_len": dict(causal=False, kv_len=True)}
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("block", [1024, 7, 4])
+@pytest.mark.parametrize("case", list(BLOCKWISE_CASES))
+def test_blockwise_attention_matches_reference(window, block, case):
+    """Against the JAX oracle ``reference_attention`` always, and against the
+    JAX ``blockwise_attention`` where its block divides Sk (14): there the
+    reference pads nothing, and its padded-tail fault (next test) cannot show."""
+    q, k, v, kv_len = blockwise_inputs()
+    kw = dict(BLOCKWISE_CASES[case], window=window)
+    if kw.pop("kv_len", False):
+        kw["kv_len"] = kv_len
+    tkw = {n: torch.tensor(a) if isinstance(a, np.ndarray) else a for n, a in kw.items()}
+    ot = attention.blockwise_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                       block=block, **tkw)
+    np.testing.assert_allclose(to_np(ot), np.asarray(j_attn.reference_attention(q, k, v, **kw)),
+                               atol=1e-5, rtol=1e-5)
+    if k.shape[1] % min(block, k.shape[1]) == 0:
+        oj = j_attn.blockwise_attention(q, k, v, block=block, **kw)
+        np.testing.assert_allclose(to_np(ot), np.asarray(oj), atol=1e-5, rtol=1e-5)
+
+
+def test_reference_blockwise_masks_its_padded_tail():
+    """A fault of the reference, which the port does not copy: where Sk is not
+    a multiple of the block, the JAX ``blockwise_attention`` masks keys at
+    ``k_pos >= Sk - pad`` (pad = the zeros it appends), so the last ``pad``
+    real keys drop out. It equals the oracle over the first Sk - pad keys."""
+    q, k, v, _ = blockwise_inputs()
+    sk, pad = k.shape[1], -k.shape[1] % 4
+    oj = np.asarray(j_attn.blockwise_attention(q, k, v, causal=False, block=4))
+    cut = np.asarray(j_attn.reference_attention(q, k[:, :sk - pad], v[:, :sk - pad], causal=False))
+    np.testing.assert_allclose(oj, cut, atol=1e-5, rtol=1e-5)
+    ot = attention.blockwise_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v),
+                                       causal=False, block=4)
+    full = np.asarray(j_attn.reference_attention(q, k, v, causal=False))
+    np.testing.assert_allclose(to_np(ot), full, atol=1e-5, rtol=1e-5)
+    assert np.abs(full - cut).max() > 1e-2
+
+
+def test_blockwise_attention_keeps_q_dtype():
+    q, k, v = (torch.tensor(x).to(torch.bfloat16) for x in qkv_inputs(3, 1, 8, 8, 2, 1, 16))
+    o = attention.blockwise_attention(q, k, v, causal=True, block=3)
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    np.testing.assert_allclose(to_np(o), to_np(attention.reference_attention(q, k, v, causal=True)),
+                               atol=1e-2)
+
+
+def test_cuda_tensors_reach_the_kernel(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel (mocked here: fake CUDA
+    tensors, a recording stand-in for the ctypes function) with the strides of
+    the (B, S, H, D) layout read in place, and never the plain version."""
+    calls = []
+
+    def fake_launch(*args):
+        calls.append(args)
+        return 0
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa, "_kernel", lambda: fake_launch)
+    monkeypatch.setattr(fa, "flash_attention_fwd_plain", no_plain)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: torch.device(d))
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 7}))
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    before = fa.flash_attention_fwd.launches
+    b, sq, sk, h, hk, d = 2, 40, 40, 8, 2, 64
+    with FakeTensorMode():
+        q = torch.empty(b, sq, h, d, device="cuda")
+        k = torch.empty(b, sk, hk, d, device="cuda")
+        o = flash_attention(q, k, k.clone(), causal=True)
+        assert o.device.type == "cuda" and o.shape == q.shape
+        o3 = fa.flash_attention_fwd(fa._heads_first(q).contiguous(),
+                                    fa._heads_first(k).contiguous(),
+                                    fa._heads_first(k).contiguous(), causal=False, sk_valid=31)
+        assert o3.shape == (b * h, sq, d)
+        q48 = torch.empty(b, sq, h, 48, device="cuda")
+        k48 = torch.empty(b, sk, hk, 48, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q48, k48, k48)
+    assert fa.flash_attention_fwd.launches == before + 2 and len(calls) == 2
+    (_, _, _, _, st4, *ints4, scale, stream), (_, _, _, _, st3, *ints3, _, _) = calls
+    assert isinstance(st4, ctypes.Array) and list(st4) == [
+        sq * h * d, h * d, d, sk * hk * d, hk * d, d, sk * hk * d, hk * d, d, sq * h * d, h * d, d]
+    assert ints4 == [b, h, hk, sq, sk, d, sk, 1, 0] and stream == 7
+    assert scale == pytest.approx(d**-0.5)
+    # (B·H, S, D) is read as B = 1 with the flat head index as H
+    assert list(st3)[1:3] == [d, sq * d] and ints3 == [1, b * h, b * hk, sq, sk, d, 31, 0, 0]
+
+
+def test_other_devices_raise():
+    q = torch.empty(1, 4, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        flash_attention(q, q, q)
