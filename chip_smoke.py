@@ -6,8 +6,8 @@
 
 Phases, one JSON line each:
   1. device   the card, its count, and nvidia-smi's name and power limit
-  2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds and
-              ptxas report
+  2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds,
+              ptxas report, and flash attention's dynamic shared memory per head dim
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serve and prefill paths' full-width shapes and at the CPU tests' shapes
   4. path     the tiered serve step on the card against the same step on the CPU,
@@ -21,8 +21,10 @@ Phases, one JSON line each:
               and 4: prefill ms, prompt tokens/s, decode ms/step, launch counts
   7. times    device time per launch of each kernel and its plain version (CUDA
               events, L2 flushed, the host's enqueue hidden behind a spin), the
-              host's enqueue time, the least time the card could take, and for
-              flash attention one PyTorch call that computes the same function
+              host's enqueue time, the least time the card could take (flash
+              attention: on the 3xTF32 tensor cores, and on the CUDA cores beside
+              it), a one-element op's time as the launch floor, and for flash
+              attention one PyTorch call that computes the same function
   8. profile  torch.profiler over a few full-width RARO steps, and over one
               full-width prefill: the device's busy share and the kernels and host
               ops that take the time
@@ -32,6 +34,7 @@ Then the `kernels` line and, last, the `ok` line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
@@ -60,6 +63,11 @@ from repro_torch.serving import serve_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # H100 SXM, TF32 tensor cores, dense
+BF16_FLOP_PER_S = 989e12  # H100 SXM, bf16 tensor cores, dense
+# flash attention's f32 products are 3xTF32: three TF32 products for each
+FLASH_RATE = {torch.float32: (TF32_FLOP_PER_S / 3, "3xTF32 tensor cores, 495e12 / 3"),
+              torch.bfloat16: (BF16_FLOP_PER_S, "bf16 tensor cores, 989e12")}
 TOL = 1e-5  # kernel against plain, both in f32 on the card
 # flash attention against its plain version: 1e-5 in f32; 2e-2 in bf16, where
 # both round p and each tile's P.V to bf16 but at other points of the sums
@@ -190,8 +198,8 @@ def flash_cost(q, k, causal=True):
     return bytes_, 4 * d * b * h * pairs
 
 
-def bound_ms(bytes_, flops):
-    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(bytes_, flops, rate=F32_FLOP_PER_S):
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -213,7 +221,12 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     report = build.build(["tiered_attention", "quant_page", "flash_attention"])
-    emit("build", seconds=time.perf_counter() - t0, report=report)
+    smem = build.load("flash_attention").flash_attention_smem_bytes
+    smem.restype = ctypes.c_int
+    flash_smem = {f"D{d} {dt}": smem(d, int(dt == "bf16")) for d in (16, 32, 64, 128)
+                  for dt in ("f32", "bf16")}
+    emit("build", seconds=time.perf_counter() - t0, report=report,
+         flash_dynamic_smem_bytes=flash_smem)
 
 
 def _max_err(outs, refs, names):
@@ -272,7 +285,7 @@ def check_quant(dev, full_only):
 
 
 def check_flash(dev, full_only):
-    """The kernel against its plain version (with the kernel's 64-key blocks,
+    """The kernel against its plain version (with the kernel's KV blocks,
     so that both round p and each block's P.V at the same points), on both
     layouts it takes; a tail mask (sk_valid < Sk) on the reference's layout."""
     rng = np.random.default_rng(4)
@@ -288,9 +301,10 @@ def check_flash(dev, full_only):
         outs = [flash_attention_fwd(q, k, v, causal=causal),
                 flash_attention_fwd(*heads_first, sk_valid=sk_valid, causal=causal)]
         torch.cuda.synchronize()
-        refs = [flash_attention_fwd_plain(q, k, v, causal=causal, block_k=64),
+        bk = 32 if d == 128 else 64  # the kernel's KV tile
+        refs = [flash_attention_fwd_plain(q, k, v, causal=causal, block_k=bk),
                 flash_attention_fwd_plain(*heads_first, sk_valid=sk_valid, causal=causal,
-                                          block_k=64)]
+                                          block_k=bk)]
         errs = {}
         for name, o, r in zip(("bshd", "bhsd_tail"), outs, refs):
             check(o.dtype == dt and o.shape == r.shape, f"{label} {name}: {o.dtype} {o.shape}")
@@ -613,6 +627,11 @@ def phase_times(dev):
     rng = np.random.default_rng(3)
     out = {}
     rows = []
+    # what any launch costs, timed the same way: one PyTorch op on one element
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_host_ms = time_launches(lambda: one.add_(1))
+    emit("times", kernel="launch_floor", op="add_ on a 1-element tensor", ms=floor_ms,
+         host_ms=floor_host_ms)
     # the three launches of one layer's decode step: tier 0 (an f32 pool, as the
     # serve path holds it), int8 and int4, each with 4 of 6 pages valid per sequence
     # (32 steps commit 4 pages)
@@ -625,7 +644,7 @@ def phase_times(dev):
         bnd, by = bound_ms(bytes_, flops)
         emit("times", kernel="tiered_decode_partial", tier=tier, ms=ms, host_ms=host_ms,
              plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_, flops=flops,
-             bound_ms=bnd, bound_by=by, library="none")
+             bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms, library="none")
     out["tiered_decode_partial"] = _mean_row(rows)
     rows = []
     # one _store_page: the K and V pages of a batch of 4, f32, as the serve path commits them
@@ -638,7 +657,7 @@ def phase_times(dev):
         bnd, by = bound_ms(bytes_, flops)
         emit("times", kernel="quantize_pages", tier=tier, shape=list(x.shape), ms=ms,
              host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
-             flops=flops, bound_ms=bnd, bound_by=by, library="none")
+             flops=flops, bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms, library="none")
     out["quantize_pages"] = _mean_row(rows)
 
     # one launch of the prefill's attention at full width, f32 as the path runs it
@@ -659,10 +678,14 @@ def phase_times(dev):
     lib_err = float((library().transpose(1, 2) - flash_attention_fwd(q, k, v, causal=causal))
                     .abs().max())
     bytes_, flops = flash_cost(q, k, causal)
-    bnd, by = bound_ms(bytes_, flops)
+    rate, rate_name = FLASH_RATE[q.dtype]
+    bnd, by = bound_ms(bytes_, flops, rate)
+    core_bnd, core_by = bound_ms(bytes_, flops)  # PR 12's bound, on the CUDA cores
     emit("times", kernel="flash_attention_fwd", shape=list(FLASH_FULL), dtype="float32", ms=ms,
          host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_, flops=flops,
-         bound_ms=bnd, bound_by=by, library="torch.nn.functional.scaled_dot_product_attention",
+         bound_ms=bnd, bound_by=by, bound_rate=rate_name, cuda_core_bound_ms=core_bnd,
+         cuda_core_bound_by=core_by, launch_floor_ms=floor_ms,
+         library="torch.nn.functional.scaled_dot_product_attention",
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)

@@ -46,7 +46,7 @@ def build(names) -> dict[str, dict]:
     """Compile every named kernel whose library is missing, one nvcc process
     per source, all started together. Returns, per name built, the seconds
     it took and ptxas's report: each entry function (mangled) with its
-    registers and spills. Raises if any build fails."""
+    registers, spills and warnings. Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
@@ -69,7 +69,7 @@ def build(names) -> dict[str, dict]:
         report[name] = {"seconds": time.perf_counter() - t0,
                         "ptxas": [ln.strip() for ln in log.splitlines()
                                   if "entry function" in ln or "registers" in ln
-                                  or "spill" in ln]}
+                                  or "spill" in ln or "warning" in ln]}
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report

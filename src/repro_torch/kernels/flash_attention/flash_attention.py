@@ -22,7 +22,7 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is compiled for
 
-_fn = None
+_lib_handle = None
 
 
 def _heads_first(x):
@@ -73,15 +73,19 @@ def flash_attention_fwd_plain(q, k, v, *, sk_valid=None, causal=True, block_q=12
     return out.reshape(bh, sq, dv).to(q.dtype)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load("flash_attention").flash_attention_fwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _lib():
+    """The kernel library, its two entry points typed."""
+    global _lib_handle
+    if _lib_handle is None:
+        lib = build.load("flash_attention")
+        lib.flash_attention_fwd_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+            + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_fwd_launch.restype = ctypes.c_int
+        lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
+        _lib_handle = lib
+    return _lib_handle
 
 
 def _check(q, k, v, sk_valid):
@@ -103,6 +107,10 @@ def _check(q, k, v, sk_valid):
         raise ValueError(f"need Sq >= 1 and 1 <= sk_valid ({sk_valid}) <= Sk ({k.shape[1]})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim of q, k and v must be contiguous")
+    # the kernel copies 16-byte chunks: every operand and row starts on 16 bytes
+    if any(t.data_ptr() % 16 or any(st * t.element_size() % 16 for st in t.stride()[:3])
+           for t in (q, k, v)):
+        raise ValueError("q, k and v and each of their rows must be 16-byte aligned")
 
 
 def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
@@ -114,7 +122,8 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     q's dtype. Keys at positions >= ``sk_valid`` (default Sk) are masked. Sq
     and Sk are any lengths: the kernel masks its ragged tiles itself.
 
-    On the card the kernel's tiles are its own (64 query rows by 64 keys);
+    On the card the kernel's tiles are its own (128 query rows by 64 keys, 32
+    at D 128);
     ``block_q`` and ``block_k`` are the plain version's blocks, as they were
     the Pallas grid's, and change the result only by rounding.
     ``flash_attention_fwd.launches`` counts kernel launches.
@@ -135,11 +144,16 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     sk_valid = sk if sk_valid is None else sk_valid
     _check(*views[:3], sk_valid)
     strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
-    fn = _kernel()
+    lib = _lib()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    # the KV tiles as the kernel prepares them: split, transposed, in its layout
+    n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, is_bf16)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides, b, h, hk, sq, sk,
-                d, sk_valid, int(causal), int(q.dtype == torch.bfloat16), d**-0.5,
-                torch.cuda.current_stream(q.device).cuda_stream)
+        rc = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
+            strides, b, h, hk, sq, sk, d, sk_valid, int(causal), is_bf16, d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     flash_attention_fwd.launches += 1

@@ -90,6 +90,8 @@ def _check(q, k_pool, v_pool, sk, sv, slot_table, tier):
     if q.dim() != 3 or q.dtype != torch.float32:
         raise ValueError(f"q must be (B, H, D) f32, got {tuple(q.shape)} {q.dtype}")
     b, h, d = q.shape
+    if d % 4 or q.data_ptr() % 16:  # the kernel reads q and V rows 16 bytes at a time
+        raise ValueError(f"the kernel needs D a multiple of 4 (got {d}) and q 16-byte aligned")
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape or k_pool.dtype != v_pool.dtype:
         raise ValueError("k_pool and v_pool must be (N, P, Hk, D') of one shape and dtype")
     n, _, hk, dp = k_pool.shape

@@ -80,6 +80,82 @@ def test_plain_layouts_and_blocks_agree_with_oracle(shape):
     np.testing.assert_allclose(to_np(o), to_np(r), atol=1e-5, rtol=1e-5)
 
 
+def round_tf32(x):
+    """f32 to the nearest tf32 (10 mantissa bits), ties away from zero, on the
+    bit pattern: what ``cvt.rna.tf32.f32`` gives."""
+    bits = x.contiguous().numpy().view(np.uint32)
+    return torch.from_numpy(((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32))
+
+
+def split_tf32(x):
+    big = round_tf32(x)
+    return big, round_tf32(x - big)
+
+
+def tf32_products(a, b, passes):
+    """a @ b from tf32 parts, summed in f32: 3 passes are big.big + big.small +
+    small.big (the kernel's 3xTF32; each product of two tf32 values is exact in
+    f32), 1 pass is big.big alone."""
+    (ab, as_), (bb, bs) = split_tf32(a), split_tf32(b)
+    if passes == 1:
+        return ab @ bb
+    return (as_ @ bb + ab @ bs) + ab @ bb
+
+
+def tf32_attention(q, k, v, *, causal, passes, block_k=64):
+    """The plain version's algebra on (B, S, H, D) f32, with both products
+    taken by ``tf32_products``: the arithmetic of the kernel's f32 path."""
+    b, sq, h, d = q.shape
+    qh, kh, vh = (fa._heads_first(t) for t in (q, k, v))
+    g = h // k.shape[2]
+    sk = kh.shape[1]
+    qg = (qh * d**-0.5).reshape(-1, g * sq, d)  # flat head h reads KV head h // g
+    q_pos = torch.arange(sq).repeat(g)[:, None]
+    m = torch.full((qg.shape[0], g * sq), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qg.shape)
+    for j0 in range(0, sk, block_k):
+        kj, vj = kh[:, j0:j0 + block_k], vh[:, j0:j0 + block_k]
+        s = tf32_products(qg, kj.transpose(-1, -2).contiguous(), passes)
+        k_pos = j0 + torch.arange(kj.shape[1])[None, :]
+        if causal:
+            s = torch.where(q_pos >= k_pos, s, fa.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + tf32_products(p, vj.contiguous(), passes)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+TF32_SHAPES = SHAPES + [(1, 2048, 2048, 1, 1, 64, True)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_3xtf32_products_hold_the_f32_tolerance(shape):
+    """The kernel's f32 arithmetic, emulated: 3xTF32 products keep the output
+    within 1e-5 of the f32 oracle, where one TF32 pass misses it; so the split
+    is what lets the tensor cores take f32 inputs."""
+    b, sq, sk, h, hk, d, causal = shape
+    q, k, v = (torch.tensor(x) for x in qkv_inputs(5, b, sq, sk, h, hk, d))
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    three = tf32_attention(q, k, v, causal=causal, passes=3)
+    np.testing.assert_allclose(to_np(three), to_np(ref), atol=1e-5, rtol=1e-5)
+    one = tf32_attention(q, k, v, causal=causal, passes=1)
+    assert float((one - ref).abs().max()) > 1e-5
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    ulp = 2.0**-10  # tf32's spacing in [1, 2)
+    x = torch.tensor([1.0, 1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2**-23, 1 + 0.75 * ulp])
+    want = torch.tensor([1.0, 1 + ulp, -(1 + ulp), 1.0, 1 + ulp])
+    assert torch.equal(round_tf32(x), want)
+    big, small = split_tf32(torch.tensor([np.pi], dtype=torch.float32))
+    assert float((big + small - np.float32(np.pi)).abs()) <= 2.0**-21
+
+
 def blockwise_inputs():
     rng = np.random.default_rng(2)
     b, sq, sk, h, hk, d = 2, 9, 14, 4, 2, 16
@@ -141,18 +217,25 @@ def test_blockwise_attention_keeps_q_dtype():
 
 def test_cuda_tensors_reach_the_kernel(monkeypatch):
     """On a CUDA tensor the wrapper launches the kernel (mocked here: fake CUDA
-    tensors, a recording stand-in for the ctypes function) with the strides of
-    the (B, S, H, D) layout read in place, and never the plain version."""
-    calls = []
+    tensors, recording stand-ins for the library's ctypes functions) with the
+    strides of the (B, S, H, D) layout read in place and the scratch the library
+    asks for, and never the plain version."""
+    calls, asked = [], []
 
     def fake_launch(*args):
         calls.append(args)
         return 0
 
+    def fake_scratch_bytes(*args):
+        asked.append(args)
+        return 4096
+
     def no_plain(*a, **kw):
         raise AssertionError("the plain version ran on a CUDA tensor")
 
-    monkeypatch.setattr(fa, "_kernel", lambda: fake_launch)
+    lib = type("Lib", (), {"flash_attention_fwd_launch": staticmethod(fake_launch),
+                           "flash_attention_scratch_bytes": staticmethod(fake_scratch_bytes)})
+    monkeypatch.setattr(fa, "_lib", lambda: lib)
     monkeypatch.setattr(fa, "flash_attention_fwd_plain", no_plain)
     monkeypatch.setattr(torch.cuda, "device", lambda d: torch.device(d))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 7}))
@@ -173,7 +256,10 @@ def test_cuda_tensors_reach_the_kernel(monkeypatch):
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q48, k48, k48)
     assert fa.flash_attention_fwd.launches == before + 2 and len(calls) == 2
-    (_, _, _, _, st4, *ints4, scale, stream), (_, _, _, _, st3, *ints3, _, _) = calls
+    assert asked == [(b, hk, sk, d, 0), (1, b * hk, 31, d, 0)]
+    assert all(len(c) == 18 for c in calls)
+    (_, _, _, _, _, n4, st4, *ints4, scale, stream), (_, _, _, _, _, n3, st3, *ints3, _, _) = calls
+    assert n4 == n3 == 4096
     assert isinstance(st4, ctypes.Array) and list(st4) == [
         sq * h * d, h * d, d, sk * hk * d, hk * d, d, sk * hk * d, hk * d, d, sq * h * d, h * d, d]
     assert ints4 == [b, h, hk, sq, sk, d, sk, 1, 0] and stream == 7
