@@ -10,12 +10,16 @@ Phases, one JSON line each:
               ptxas report, and flash attention's dynamic shared memory per head dim
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serve and prefill paths' full-width shapes and at the CPU tests' shapes
+              (quantize_pages by both entries: contiguous pages, and the store into
+              the tier pools, every pool tensor exact)
   4. path     the tiered serve step on the card against the same step on the CPU,
               from the same state, along 16 steps of a 2-layer model; then
               make_prefill and 8 make_serve_step steps the same way, at kv_bits
-              16, 8 and 4
+              16, 8 and 4; then one append and one raro_step at full width under
+              torch.cuda.set_sync_debug_mode("error"): neither may make the host wait
   5. serve    launch.serve.run at tinyllama-1.1b's full widths and depth
               (random weights), RARO on and off, with the kernels' launch counts
+              (exact), and the host syncs of one step of each, by source line
   6. prefill  make_prefill at tinyllama-1.1b's full widths and depth, batch 4,
               2048-token prompts, then 32 make_serve_step steps, at kv_bits 16, 8
               and 4: prefill ms, prompt tokens/s, decode ms/step, launch counts
@@ -24,7 +28,9 @@ Phases, one JSON line each:
               host's enqueue time, the least time the card could take (flash
               attention: on the 3xTF32 tensor cores, and on the CUDA cores beside
               it), a one-element op's time as the launch floor, and for flash
-              attention one PyTorch call that computes the same function
+              attention one PyTorch call that computes the same function; the
+              store path's whole calls (the store with its pool copies, append,
+              raro_step): device ms, host enqueue ms, and ms per call back to back
   8. profile  torch.profiler over a few full-width RARO steps, and over one
               full-width prefill: the device's busy share and the kernels and host
               ops that take the time
@@ -37,21 +43,28 @@ import argparse
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import tinyllama_1_1b  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     flash_attention_fwd, flash_attention_fwd_plain)
+# the store entry is read off these modules where it is used, so that the
+# store path's timing and sync counts also run against a tree that lacks it
+from repro_torch.kernels.quant_page import quant_page as qp, ref as qp_ref  # noqa: E402
 from repro_torch.kernels.quant_page.quant_page import quantize_pages  # noqa: E402
 from repro_torch.kernels.quant_page.ref import quant_pages_ref  # noqa: E402
 from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E402
@@ -80,8 +93,14 @@ STEPS = 32  # decode steps of each full-width serve run: 4 pages committed per s
 FULL = dict(b=4, h=32, hk=4, d=64, p=8, mp=6)
 # tests/test_kernels.py::TestTieredAttention shapes: (B, MP, P, Hk, G, D)
 TEST_SHAPES = [(2, 6, 4, 2, 2, 16), (1, 4, 8, 1, 4, 32), (3, 8, 4, 4, 1, 64)]
-# tests/test_kernels.py::TestQuantPage shapes, and the serve path's (2B K and V pages)
-QUANT_SHAPES = [(8, 8, 4, 64), (4, 16, 4, 32), (2, 64, 2, 128), (1, 8, 8, 64)]
+# the serve path's (2B K and V pages), tests/test_kernels.py::TestQuantPage shapes,
+# and shapes that reach the kernel's other paths: 8 and 32 elements a lane in
+# registers, the streaming path with an odd-sized page, more heads than warps
+QUANT_SHAPES = [(8, 8, 4, 64), (4, 16, 4, 32), (2, 64, 2, 128), (1, 8, 8, 64), (2, 4, 2, 64),
+                (2, 16, 2, 64), (3, 5, 3, 6), (1, 8, 40, 16)]
+# the store entry at the serve path's commit: B lanes of K and V pages (P, Hk, D)
+# into pools of (8, 16, 256) pages; at the test shapes, 6 lanes into (5, 6, 9)
+STORE_FULL = dict(b=4, p=8, hk=4, d=64, n=(8, 16, 256))
 
 PROMPT = 2048  # tinyllama-1.1b's published context
 # the prefill's attention at tinyllama-1.1b widths: (B, Sq, Sk, H, Hk, D, causal)
@@ -179,6 +198,51 @@ def quant_cost(x, tier):
     bytes_ = x.numel() * x.element_size() + out_elems + n * hk * 4 + n * 4
     # absmax, divide, round, clip, dequantize, two squared sums: ~8 per element
     return bytes_, 8 * x.numel()
+
+
+def store_inputs(rng, b, p, hk, d, n, page_dtype, pool0_dtype, device, tier=None, skip=()):
+    """K and V pages (B, P, Hk, D), random pools of n = (n0, n1, n2) pages (so
+    that a slot the store must leave alone shows), and per lane a tier (0, 1, 2,
+    0, ... unless given) and a distinct slot of it; the lanes in ``skip`` get
+    slot -1 and one past their pool's end, in turn. Returns (kpage, vpage,
+    tier, slot) and the pools, in kvcache.paged's order."""
+    pages = [torch.tensor(rng.standard_normal((b, p, hk, d)).astype(np.float32)).to(page_dtype)
+             for _ in range(2)]
+    pages[0].view(-1)[:4] = torch.tensor([0.5, -1.5, 2.5, -3.5])  # exact .5 ties
+    tier = np.array([i % 3 for i in range(b)] if tier is None else tier, np.int32)
+    free = [list(rng.permutation(k)) for k in n]
+    slot = np.array([free[t].pop() for t in tier], np.int32)
+    for j, i in enumerate(skip):
+        slot[i] = -1 if j % 2 == 0 else n[tier[i]]
+
+    def codes(rows, width):
+        return torch.tensor(rng.integers(-128, 128, (rows, p, hk, width)).astype(np.int8))
+
+    def scales(rows):
+        return torch.tensor(rng.random((rows, hk)).astype(np.float32))
+
+    pools = (*[torch.tensor(rng.standard_normal((n[0], p, hk, d)).astype(np.float32))
+               .to(pool0_dtype) for _ in range(2)],
+             codes(n[1], d), codes(n[1], d), scales(n[1]), scales(n[1]),
+             codes(n[2], d // 2), codes(n[2], d // 2), scales(n[2]), scales(n[2]))
+    lanes = (pages[0], pages[1], torch.tensor(tier), torch.tensor(slot))
+    return [t.to(device) for t in lanes], tuple(t.to(device) for t in pools)
+
+
+def store_cost(kpage, tier, slot, pools, tiers=(0, 1, 2)):
+    """(bytes, flops) of one store launch for these inputs: the lanes' tiers and
+    slots, and each stored lane's K and V pages, read once; its codes and
+    scales, or its tier-0 copy, written once. Skipped lanes cost their tier and
+    slot only."""
+    b, p, hk, d = kpage.shape
+    elems = p * hk * d
+    tier, slot = tier.tolist(), slot.tolist()
+    n = (pools[0].shape[0], pools[2].shape[0], pools[6].shape[0])
+    stored = [t for t, s in zip(tier, slot) if t in tiers and 0 <= s < n[t]]
+    out = {0: elems * pools[0].element_size(), 1: elems + hk * 4, 2: elems // 2 + hk * 4}
+    bytes_ = 8 * b + sum(2 * (elems * kpage.element_size() + out[t]) for t in stored)
+    # absmax, divide, round, clip and pack: ~5 per quantized element
+    return bytes_, sum(2 * 5 * elems for t in stored if t > 0)
 
 
 def flash_inputs(rng, b, sq, sk, h, hk, d, dtype, device):
@@ -281,7 +345,40 @@ def check_quant(dev, full_only):
                 emit("kernels", kernel="quantize_pages", shape=list(shape), tier=tier,
                      dtype=str(dt).replace("torch.", ""), codes_equal=True, scales_equal=True,
                      err_max_abs_err=err)
+    check_store(dev, full_only)
     return worst
+
+
+def check_store(dev, full_only):
+    """The store entry against its plain version: lanes over tiers 0, 1 and 2
+    and skipped lanes, f32 and bf16 pages and tier-0 pools, every tier or one;
+    every pool tensor equal, untouched slots included, and the given pools left
+    as they were."""
+    rng = np.random.default_rng(6)
+    f = STORE_FULL
+    cases = [("full", f["b"], f["p"], f["hk"], f["d"], f["n"], (3,))]
+    if not full_only:
+        cases += [(f"test{i}", 6, p, hk, d, (5, 6, 9), (3, 4))
+                  for i, (_, p, hk, d) in enumerate(QUANT_SHAPES[1:])]
+    for label, b, p, hk, d, n, skip in cases:
+        checked = 0
+        for page_dt in (torch.float32, torch.bfloat16):
+            for pool0_dt in (torch.float32, torch.bfloat16):
+                for tiers_ in ((0, 1, 2), (1,), (2,)):
+                    lanes, pools = store_inputs(rng, b, p, hk, d, n, page_dt, pool0_dt, dev,
+                                                skip=skip)
+                    before = [t.clone() for t in pools]
+                    out = qp.quant_store_pages(*lanes, pools, tiers=tiers_)
+                    torch.cuda.synchronize()
+                    ref = qp_ref.quant_store_pages_ref(*lanes, pools, tiers=tiers_)
+                    for i, (a, r) in enumerate(zip(out, ref)):
+                        check(a.dtype == r.dtype and torch.equal(a, r),
+                              f"store: pool {i} differs ({label}, pages {page_dt}, tier-0 "
+                              f"pool {pool0_dt}, tiers {tiers_})")
+                        check(torch.equal(pools[i], before[i]), f"store wrote pool {i} in place")
+                    checked += 1
+        emit("kernels", kernel="quantize_pages", entry="store", shape=label,
+             b_p_hk_d=[b, p, hk, d], pool_pages=list(n), cases=checked, pools_equal=True)
 
 
 def check_flash(dev, full_only):
@@ -351,6 +448,96 @@ def phase_path(dev, steps=16, n_layers=2):
         emit("path", raro=rcfg.enabled, steps=steps, n_layers=n_layers,
              logits_max_abs_err=worst, tiers=sorted(tiers_seen))
     return worst
+
+
+def host_syncs(fn):
+    """fn's result, and each host sync it made (as "file:line" of the port's
+    code that made it): set_sync_debug_mode("warn") turns each into a warning."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in seen
+                 if "called a synchronizing" in str(w.message)]
+
+
+def full_width_cache(dev, cfg, rcfg):
+    """One layer's cache at the serve path's shapes, its config and the
+    generator, after all but the last token of a page went in (an append and a
+    controller step each), from random K and V and no attention mass: the next
+    append commits a cold page, to int4, in every sequence, which masses_like
+    then heats enough that the controller promotes some."""
+    ccfg = serve.cache_config(cfg, STEPS, FULL["b"])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c = paged.init(ccfg, torch.float32, dev)
+    for _ in range(ccfg.page_size - 1):
+        k, v = (torch.randn((ccfg.n_seqs, ccfg.n_kv_heads, ccfg.head_dim), generator=gen,
+                            device=dev) for _ in range(2))
+        c = paged.append(c, ccfg, k, v, tiers.commit_tier(c, ccfg, rcfg))
+        c, _ = tiers.raro_step(c, ccfg, rcfg, torch.zeros_like(c.hot))
+    return c, ccfg, gen
+
+
+def masses_like(c, gen):
+    """Random per-page attention masses, heavy enough to heat pages."""
+    return torch.rand(c.hot.shape, generator=gen, device=c.hot.device) * 0.3
+
+
+def phase_syncs(dev, cfg):
+    """One commit_tier, append and raro_step of one layer at full width, RARO on,
+    under set_sync_debug_mode("error"), in which every sequence commits a page,
+    after the page's other tokens went in uncounted: any host sync raises. The
+    core tables are made on the card in the uncounted part."""
+    rcfg = tiers.RAROConfig()
+    c, ccfg, gen = full_width_cache(dev, cfg, rcfg)
+    k, v = (torch.randn((ccfg.n_seqs, ccfg.n_kv_heads, ccfg.head_dim), generator=gen, device=dev)
+            for _ in range(2))
+    masses = masses_like(c, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        c = paged.append(c, ccfg, k, v, tiers.commit_tier(c, ccfg, rcfg))
+        c, stats = tiers.raro_step(c, ccfg, rcfg, masses)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    committed = int((c.tier >= 0).sum())
+    moved = {k: int(n) for k, n in stats.items()}
+    check(committed == ccfg.n_seqs and sum(moved.values()) > 0,
+          f"{committed} pages committed (want {ccfg.n_seqs}), {moved} moved (want some)")
+    emit("syncs", check='set_sync_debug_mode("error")', calls=["commit_tier", "append",
+                                                               "raro_step"],
+         committed=committed, moved=moved, raised=False)
+
+
+def step_syncs(dev, cfg, raro, batch=4, at_step=7):
+    """Host syncs in one full-width tiered decode step (serve.tiered_decode_step,
+    all layers), by source line: the 8th step, in which every sequence commits
+    a page, after seven uncounted ones."""
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
+                              torch.float32, dev)
+    ccfg = serve.cache_config(cfg, STEPS, batch)
+    rcfg = tiers.RAROConfig(enabled=raro)
+    caches = [paged.init(ccfg, torch.float32, dev) for _ in range(cfg.n_layers)]
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    for t in range(at_step + 1):
+        pos = torch.full((batch,), t, dtype=torch.int32, device=dev)
+
+        def step():
+            return serve.tiered_decode_step(params, caches, ccfg, rcfg, tok, pos, cfg)
+
+        (logits, caches), syncs = host_syncs(step) if t == at_step else (step(), None)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    by_file = Counter(s.rsplit(":", 1)[0] for s in syncs)
+    kv = sum(n for f, n in by_file.items() if "/kvcache/" in f)
+    emit("syncs", path="serve.tiered_decode_step", arch=cfg.arch, n_layers=cfg.n_layers,
+         raro=raro, step=at_step, syncs_per_step=len(syncs), from_kvcache=kv,
+         by_file=dict(by_file.most_common()), by_line=dict(Counter(syncs).most_common(30)))
+    return len(syncs), kv
 
 
 class RecordLogits:
@@ -495,7 +682,10 @@ def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
 
 def phase_serve(dev, cfg, steps, batch):
     """launch.serve.run at full width, RARO on then off; the counts are set to 0
-    just before each run and read just after it."""
+    just before each run and read just after it, and must be exact: per layer
+    and step, three partials, and one store launch in append plus, with RARO,
+    one in each of raro_step's three moves into int8 or int4. Then the host
+    syncs of one step of each."""
     finite = []
     step = serve.tiered_decode_step
 
@@ -516,10 +706,10 @@ def phase_serve(dev, cfg, steps, batch):
             torch.cuda.synchronize()
             n = counts()
             check(len(finite) == steps and bool(torch.stack(finite).all()), "non-finite logits")
-            want = 3 * cfg.n_layers * steps
-            check(n["tiered_decode_partial"] == want, f"partial launches {n}, want {want}")
-            check(n["quantize_pages"] >= 1, f"quantize_pages never launched: {n}")
-            check(n["flash_attention_fwd"] == 0, f"the decode loop ran flash attention: {n}")
+            want = {"tiered_decode_partial": 3 * cfg.n_layers * steps,
+                    "quantize_pages": (4 if raro else 1) * cfg.n_layers * steps,
+                    "flash_attention_fwd": 0}
+            check(n == want, f"launches {n}, want {want}")
             check(all(math.isfinite(out[k]) for k in ("mean_prob_drift", "final_prob_drift")),
                   f"drift is not finite: {out}")
             if raro:
@@ -532,6 +722,8 @@ def phase_serve(dev, cfg, steps, batch):
                  max_memory_allocated=torch.cuda.max_memory_allocated())
     finally:
         serve.tiered_decode_step = step
+    for raro in (True, False):
+        step_syncs(dev, cfg, raro, batch)
     return runs
 
 
@@ -623,6 +815,97 @@ def time_launches(fn, n_iter=50, warmup=5):
     return device_ms / n_iter, host_s * 1e3 / n_iter
 
 
+def time_call(fn, n_iter=20):
+    """A whole call: device ms and host enqueue ms as time_launches takes them
+    (for a call that syncs, the device time takes in the waits on the host, and
+    the host time the wait on the spin), and ms per call with calls back to
+    back, host clock, ended by a synchronize: what a loop of them costs."""
+    device_ms, host_ms = time_launches(fn, n_iter=n_iter)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    torch.cuda.synchronize()
+    return dict(device_ms=device_ms, host_ms=host_ms,
+                loop_ms=(time.perf_counter() - t0) * 1e3 / n_iter)
+
+
+def time_store(dev, floor_ms=None):
+    """The store path at the serve shape: the store entry's kernel alone and its
+    plain version (append's commit: lanes of tiers 0, 1, 2, 2, f32 pages); the
+    whole store call, its pool copies included, for that commit and for a move
+    of 4 bf16 pages into int4; and whole append (a committing one) and
+    raro_step calls of one layer. On a tree without the store entry the whole
+    store calls are its ``_store_page``: three for a commit, one for a move.
+    Returns the kernel's row for the ``kernels`` line (None without it)."""
+    if floor_ms is None:
+        one = torch.zeros(1, device=dev)
+        floor_ms, _ = time_launches(lambda: one.add_(1))
+    rng = np.random.default_rng(8)
+    f = STORE_FULL
+    has_store = hasattr(qp, "quant_store_pages")
+    commit, pools = store_inputs(rng, f["b"], f["p"], f["hk"], f["d"], f["n"], torch.float32,
+                                 torch.float32, dev, tier=(0, 1, 2, 2))
+    move, _ = store_inputs(rng, f["b"], f["p"], f["hk"], f["d"], f["n"], torch.bfloat16,
+                           torch.float32, dev, tier=(2, 2, 2, 2))
+    row = None
+    bytes_, flops = store_cost(commit[0], commit[2], commit[3], pools)
+    bnd, by = bound_ms(bytes_, flops)
+    if has_store:
+        out = [t.clone() for t in pools]
+        fn = qp._kernel("quant_store_pages_launch")
+        k, v, tier, slot = commit
+        args = ([t.data_ptr() for t in (k, v, tier, slot, *out)]
+                + [f["b"], f["p"], f["hk"], f["d"], *f["n"], 0, 0, 0b111,
+                   torch.cuda.current_stream(dev).cuda_stream])
+        check(fn(*args) == 0, "store kernel launch failed")
+        ms, host_ms = time_launches(lambda: fn(*args))
+        plain, plain_host_ms = time_launches(lambda: qp_ref.quant_store_pages_ref(*commit, pools))
+        emit("times", kernel="quantize_pages", entry="store", lanes_tiers=[0, 1, 2, 2],
+             b_p_hk_d=[f["b"], f["p"], f["hk"], f["d"]], pool_pages=list(f["n"]), ms=ms,
+             host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
+             flops=flops, bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms, library="none")
+        row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by)
+
+        def commit_call():
+            return qp.quant_store_pages(*commit, pools)
+
+        def move_call():
+            return qp.quant_store_pages(*move, pools, tiers=(2,))
+        impl = "quant_store_pages"
+    else:
+        def commit_call():
+            out = pools
+            for t in range(3):
+                out = paged._store_page(out, t, torch.where(commit[2] == t, commit[3], -1),
+                                        commit[0], commit[1])
+            return out
+
+        def move_call():
+            return paged._store_page(pools, 2, move[3], move[0], move[1])
+        impl = "paged._store_page"
+    # a functional store also copies each pool it hands back anew
+    for name, call, lanes, written in (("store: append's commit", commit_call, commit, range(10)),
+                                       ("store: a move into int4", move_call, move, range(6, 10))):
+        b_, f_ = store_cost(lanes[0], lanes[2], lanes[3], pools)
+        b_ += 2 * sum(pools[i].numel() * pools[i].element_size() for i in written)
+        emit("times", call=name, impl=impl, **time_call(call), bytes=b_,
+             bound_ms=bound_ms(b_, f_)[0], launch_floor_ms=floor_ms)
+    rcfg = tiers.RAROConfig()
+    c, ccfg, gen = full_width_cache(dev, tinyllama_1_1b.CONFIG, rcfg)
+    k, v = (torch.randn((ccfg.n_seqs, ccfg.n_kv_heads, ccfg.head_dim), generator=gen, device=dev)
+            for _ in range(2))
+    ct = tiers.commit_tier(c, ccfg, rcfg)
+    committed = paged.append(c, ccfg, k, v, ct)
+    masses = masses_like(c, gen)
+    for name, call in (("append (commits a page per sequence)",
+                        lambda: paged.append(c, ccfg, k, v, ct)),
+                       ("raro_step", lambda: tiers.raro_step(committed, ccfg, rcfg, masses))):
+        emit("times", call=name, layer="one, tinyllama-1.1b widths", **time_call(call),
+             launch_floor_ms=floor_ms)
+    return row
+
+
 def phase_times(dev):
     rng = np.random.default_rng(3)
     out = {}
@@ -647,7 +930,7 @@ def phase_times(dev):
              bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms, library="none")
     out["tiered_decode_partial"] = _mean_row(rows)
     rows = []
-    # one _store_page: the K and V pages of a batch of 4, f32, as the serve path commits them
+    # the contiguous entry: the K and V pages of a batch of 4, f32
     for tier in (modes.TIER_INT8, modes.TIER_INT4):
         x = torch.tensor(rng.standard_normal(QUANT_SHAPES[0]).astype(np.float32)).to(dev)
         ms, host_ms = time_launches(lambda: quantize_pages(x, tier=tier))
@@ -655,10 +938,12 @@ def phase_times(dev):
         bytes_, flops = quant_cost(x, tier)
         rows.append(dict(ms=ms, plain_ms=plain, bytes=bytes_, flops=flops))
         bnd, by = bound_ms(bytes_, flops)
-        emit("times", kernel="quantize_pages", tier=tier, shape=list(x.shape), ms=ms,
+        emit("times", kernel="quantize_pages", entry="contiguous", tier=tier,
+             shape=list(x.shape), ms=ms,
              host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
              flops=flops, bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms, library="none")
-    out["quantize_pages"] = _mean_row(rows)
+    # the main path reaches it by the store entry: the kernels line takes that row
+    out["quantize_pages"] = time_store(dev, floor_ms)
 
     # one launch of the prefill's attention at full width, f32 as the path runs it
     b, sq, sk, h, hk, d, causal = FLASH_FULL
@@ -716,6 +1001,7 @@ def main():
         cfg = tinyllama_1_1b.CONFIG
         phase_path(dev)
         phase_prefill_path(dev)
+        phase_syncs(dev, cfg)
         runs = phase_serve(dev, cfg, STEPS, 4)
         launches = {k: runs[True][k] for k in ("tiered_decode_partial", "quantize_pages")}
         launches["flash_attention_fwd"] = phase_prefill(dev, cfg)["flash_attention_fwd"]

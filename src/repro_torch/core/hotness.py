@@ -29,9 +29,10 @@ def classify(heat, cfg: HeatConfig):
     """Counter values -> {COLD, WARM, HOT} labels (int32).
 
     The thresholds are compared in float32, as the reference compares a
-    float32 array against a weakly typed Python float.
+    float32 array against a weakly typed Python float. They are filled on
+    the heat's device, where a host tensor would be a copy the host waits on.
     """
-    hot = torch.tensor(cfg.hot_thresh, dtype=heat.dtype, device=heat.device)
-    warm = torch.tensor(cfg.warm_thresh, dtype=heat.dtype, device=heat.device)
+    hot = torch.full((), cfg.hot_thresh, dtype=heat.dtype, device=heat.device)
+    warm = torch.full((), cfg.warm_thresh, dtype=heat.dtype, device=heat.device)
     out = torch.where(heat >= warm, modes.WARM, modes.COLD)
     return torch.where(heat >= hot, modes.HOT, out).to(torch.int32)

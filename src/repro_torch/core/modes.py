@@ -1,11 +1,14 @@
 """Flash-mode / KV-tier constants shared by both layers of the framework.
 
 Counterpart of ``repro.core.modes``. Tables are plain tuples: a caller that
-needs one as a tensor makes it on its own device (``table(..., device)``),
-so nothing is cached on the CPU.
+needs one as a tensor gets it on its own device from ``table(..., device)``,
+which makes each table once per device and dtype: copying host values to a
+card makes the host wait for the card, and the serve loop must not.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,8 +56,14 @@ TIER_BITS = (16, 8, 4)
 
 
 def table(values, device, dtype=None) -> torch.Tensor:
-    """One of the tables above as a tensor on ``device`` (int32 for ints,
-    float32 for floats, as in the reference)."""
+    """One of the tables above (a tuple, or a tuple of tuples) as a tensor on
+    ``device`` (int32 for ints, float32 for floats, as in the reference),
+    made at the first call and shared after it: callers only read it."""
     if dtype is None:
         dtype = torch.float32 if isinstance(values[0], float) else torch.int32
+    return _table(values, dtype, torch.device(device))
+
+
+@functools.cache
+def _table(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)

@@ -50,8 +50,8 @@ _U32 = 0xFFFFFFFF
 
 def rber(mode, cycles, time_h, reads):
     """Eq. (1). All args broadcastable tensors; ``mode`` int in {0,1,2}."""
-    table = torch.tensor([MODE_RBER_PARAMS[m] for m in range(modes.N_MODES)],
-                         dtype=torch.float32, device=mode.device)  # (3, 9)
+    table = modes.table(tuple(MODE_RBER_PARAMS[m] for m in range(modes.N_MODES)),
+                        mode.device, torch.float32)  # (3, 9)
     P = table[mode.long()]
     eps, alpha, k, beta, m, n, gamma, p, q = P.unbind(-1)
     c = torch.clamp(cycles.float(), min=0.0)

@@ -28,7 +28,7 @@ def expected_retries(rber, n_sense, *, delta: float = DELTA, e_ldpc: float = E_L
     """
     rber = rber.float()
     n_sense = n_sense.float()
-    log_keep = torch.log(torch.tensor(1.0 - delta, dtype=torch.float32, device=rber.device))
+    log_keep = torch.log(torch.full((), 1.0 - delta, dtype=torch.float32, device=rber.device))
     denom = torch.clamp(a * rber * n_sense, min=1e-30)
     # full_like(...) / denom is a true division; `e_ldpc / denom` would be
     # computed by torch as reciprocal(denom) * e_ldpc, one more rounding.

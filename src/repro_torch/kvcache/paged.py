@@ -13,7 +13,9 @@ Counterpart of ``repro.kvcache.paged``. Layout (one attention layer):
 
 Functions return a new ``TieredKV`` and leave their input as it was. The
 reference's drop-mode scatters send masked lanes to an out-of-range index;
-here the masked lanes are filtered out before each write.
+here they go to a trailing row that is sliced off (``scatter_drop``), so that
+no write needs a boolean mask: on a card, ``append`` and the RARO controller
+never make the host wait for the device.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import modes
-from repro_torch.kernels.quant_page.ops import quant_pages
+from repro_torch.kernels.quant_page.ops import quant_store_pages
+from repro_torch.kernels.quant_page.ref import scatter_drop
 from repro_torch.kvcache import quant
 
 
@@ -117,34 +120,8 @@ def _alloc(free, want_b):
     rank = torch.cumsum(want_b.to(torch.int32), dim=0, dtype=torch.int32) - 1
     avail = free.sum()
     slots = torch.where(want_b & (rank < avail), order[torch.clamp(rank, 0, n - 1).long()], -1)
-    new_free = free.clone()
-    new_free[slots[slots >= 0]] = False
+    new_free = scatter_drop(free, torch.where(slots >= 0, slots, n), False)
     return slots.to(torch.int32), new_free
-
-
-def _store_page(pools, tier_id: int, slots, kpage, vpage):
-    """Write full pages (B, P, Hk, Dh) into pool ``tier_id`` at ``slots``
-    (B,), skipping lanes where slot < 0. Returns updated pool tensors.
-
-    Every lane is quantized, as in the reference, and only the kept lanes
-    are written; K and V pages go through one ``quant_pages`` call."""
-    (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4) = pools
-    ok = slots >= 0
-    idx = slots[ok].long()
-    if tier_id == modes.TIER_BF16:
-        k16 = k16.index_put((idx,), kpage[ok].to(k16.dtype))
-        v16 = v16.index_put((idx,), vpage[ok].to(v16.dtype))
-        return (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4)
-    b = kpage.shape[0]
-    q, s, _ = quant_pages(torch.cat([kpage, vpage]).contiguous(), tier=tier_id)
-    qk, qv, sk, sv = q[:b][ok], q[b:][ok], s[:b][ok], s[b:][ok]
-    if tier_id == modes.TIER_INT8:
-        k8, v8 = k8.index_put((idx,), qk), v8.index_put((idx,), qv)
-        sk8, sv8 = sk8.index_put((idx,), sk), sv8.index_put((idx,), sv)
-    else:
-        k4, v4 = k4.index_put((idx,), qk), v4.index_put((idx,), qv)
-        sk4, sv4 = sk4.index_put((idx,), sk), sv4.index_put((idx,), sv)
-    return (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4)
 
 
 def _load_page(c: TieredKV, tiers, slots, dtype=torch.bfloat16):
@@ -184,26 +161,34 @@ def append(c: TieredKV, cfg: CacheConfig, k_new, v_new, commit_tier):
     page_full = (seq_len % p) == 0
     page_idx = torch.clamp((seq_len - 1) // p, max=mp - 1).long()  # logical page committed
 
-    pools = (c.k16, c.v16, c.k8, c.v8, c.sk8, c.sv8, c.k4, c.v4, c.sk4, c.sv4)
     free = list(c.free)
-    tier_tab, slot_tab = c.tier.clone(), c.slot.clone()
-    born, requants = c.born.clone(), c.requants.clone()
     commit = commit_tier.to(torch.int32)
+    # the tier and slot each full page lands in (-1: none), then one store
+    tier_new = torch.full_like(commit, -1)
+    slot_new = torch.full_like(commit, -1)
     for t in (modes.TIER_BF16, modes.TIER_INT8, modes.TIER_INT4):
         want = page_full & (commit == t)
         slots, free[t] = _alloc(free[t], want)
         # pool exhausted -> fall back to the next denser tier
         failed = want & (slots < 0)
         commit = torch.where(failed, min(t + 1, modes.TIER_INT4), commit)
-        pools = _store_page(pools, t, slots, buf_k, buf_v)
         ok = slots >= 0
-        at = (bidx[ok], page_idx[ok])
-        tier_tab[at] = t
-        slot_tab[at] = slots[ok]
-        born[at] = c.step
-        requants[at] += 0 if t == modes.TIER_BF16 else 1
+        tier_new = torch.where(ok, t, tier_new)
+        slot_new = torch.where(ok, slots, slot_new)
+    pools = (c.k16, c.v16, c.k8, c.v8, c.sk8, c.sv8, c.k4, c.v4, c.sk4, c.sv4)
+    (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4) = quant_store_pages(
+        buf_k, buf_v, tier_new, slot_new, pools)
 
-    (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4) = pools
+    # each lane names its own table entry (bidx, page_idx), so a gather and a
+    # where write exactly the committed lanes
+    ok = slot_new >= 0
+    at = (bidx, page_idx)
+    tier_tab, slot_tab = c.tier.clone(), c.slot.clone()
+    born, requants = c.born.clone(), c.requants.clone()
+    tier_tab[at] = torch.where(ok, tier_new, tier_tab[at])
+    slot_tab[at] = torch.where(ok, slot_new, slot_tab[at])
+    born[at] = torch.where(ok, c.step, born[at])
+    requants[at] = requants[at] + (ok & (tier_new != modes.TIER_BF16)).to(torch.int32)
     return c._replace(
         buf_k=buf_k, buf_v=buf_v, k16=k16, v16=v16, k8=k8, v8=v8, sk8=sk8,
         sv8=sv8, k4=k4, v4=v4, sk4=sk4, sv4=sv4, tier=tier_tab, slot=slot_tab,

@@ -22,6 +22,8 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core import hotness, modes, policy, retry
+from repro_torch.kernels.quant_page.ops import quant_store_pages
+from repro_torch.kernels.quant_page.ref import scatter_drop
 from repro_torch.kvcache import paged
 
 
@@ -88,23 +90,34 @@ def _move_pages(c: paged.TieredKV, cfg: paged.CacheConfig, sel_b, sel_p, tgt: in
     moved = ok & (slots >= 0)
 
     pools = (c.k16, c.v16, c.k8, c.v8, c.sk8, c.sv8, c.k4, c.v4, c.sk4, c.sv4)
-    pools = paged._store_page(pools, tgt, torch.where(moved, slots, -1), kpage, vpage)
+    if tgt == modes.TIER_BF16:  # a cast, no quantization: no kernel
+        row = torch.where(moved, slots, c.k16.shape[0]).long()
+        pools = (scatter_drop(c.k16, row, kpage.to(c.k16.dtype)),
+                 scatter_drop(c.v16, row, vpage.to(c.v16.dtype)), *pools[2:])
+    else:
+        pools = quant_store_pages(kpage, vpage, torch.full_like(slots, tgt),
+                                  torch.where(moved, slots, -1), pools, tiers=(tgt,))
 
-    # release source slots
+    # release source slots (never in tier tgt: ok excludes it)
     for t in range(3):
-        rel = moved & (cur_tier == t)
-        free[t] = free[t].clone()
-        free[t][cur_slot[rel].long()] = True
+        if t != tgt:
+            rel = moved & (cur_tier == t)
+            free[t] = scatter_drop(free[t], torch.where(rel, cur_slot, free[t].shape[0]).long(),
+                                   True)
 
-    at = (b_safe[moved], p_safe[moved])
-    tier_tab, slot_tab = c.tier.clone(), c.slot.clone()
-    requants, born, reads = c.requants.clone(), c.born.clone(), c.reads.clone()
-    tier_tab[at] = tgt
-    slot_tab[at] = slots[moved]
-    requants[at] += 0 if tgt == modes.TIER_BF16 else 1
+    # -1-padded lanes clamp to (0, 0), which a moved lane may also name: they
+    # are dropped to a trailing entry of the flattened tables
+    n_seqs, mp = c.tier.shape
+    flat = torch.where(moved, b_safe * mp + p_safe, n_seqs * mp)
+
+    def put(tab, val):
+        return scatter_drop(tab.reshape(-1), flat, val).reshape(tab.shape)
+
+    tier_tab, slot_tab = put(c.tier, tgt), put(c.slot, slots)
+    requants = c.requants if tgt == modes.TIER_BF16 else put(c.requants,
+                                                              c.requants[b_safe, p_safe] + 1)
     # conversion resets the page's stress clock (fresh program, Fig. 8)
-    born[at] = c.step
-    reads[at] = 0.0
+    born, reads = put(c.born, c.step), put(c.reads, 0.0)
 
     (k16, v16, k8, v8, sk8, sv8, k4, v4, sk4, sv4) = pools
     return c._replace(
@@ -142,7 +155,7 @@ def raro_step(c: paged.TieredKV, cfg: paged.CacheConfig, rcfg: RAROConfig, masse
 
     stats = {}
     m = cfg.migrate_per_step
-    neg_inf = torch.tensor(-torch.inf, dtype=c.hot.dtype, device=c.hot.device)
+    neg_inf = torch.full((), -torch.inf, dtype=c.hot.dtype, device=c.hot.device)
     for tgt in (modes.TIER_BF16, modes.TIER_INT8):
         trig = (c.tier >= 0) & (target == tgt) & (c.tier > tgt)
         sb, sp = _topk_pages(torch.where(trig, c.hot, neg_inf), m)

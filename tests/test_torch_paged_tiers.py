@@ -4,7 +4,9 @@
 Replays tests/test_kernels.py::_build_cache in both frameworks with the same
 numpy k, v and masses, and compares every TieredKV leaf after every
 ``append`` and ``raro_step``: page tables, free masks, counters and pools
-exactly; hot/reads (float sums) within rtol 1e-6 / atol 1e-7.
+exactly; hot/reads (float sums) within rtol 1e-6 / atol 1e-7. Also: ``append``
+and ``_move_pages`` leave their input as it was, and how many calls of the
+store entry (kernel launches on a card) each makes.
 """
 
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import torch
 
 from repro.kvcache import paged as j_paged
 from repro.kvcache import tiers as j_tiers
+from repro_torch.core import modes
 from repro_torch.kvcache import paged, tiers
 from test_torch_parity import assert_cache_equal, cache_configs, to_np
 
@@ -131,3 +134,96 @@ def test_memory_and_occupancy():
     for dt_t, dt_j in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
         for a, r in zip(paged.gather_kv(tc, tcfg, dt_t), j_paged.gather_kv(jc, jcfg, dt_j)):
             np.testing.assert_array_equal(to_np(a), to_np(r))
+
+
+def _mixed_cache(seed=3):
+    """Both caches after a replay-like run that commits pages to all three
+    tiers, with the RARO controller on."""
+    rng = np.random.default_rng(seed)
+    jcfg, tcfg = cache_configs(n_seqs=3, max_pages=6, page_size=2, n_kv_heads=2, head_dim=8,
+                               pool_pages=(8, 8, 18), migrate_per_step=3)
+    jc, tc = j_paged.init(jcfg, jnp.float32), paged.init(tcfg, torch.float32, "cpu")
+    for t in range(9):
+        k1 = rng.standard_normal((3, 2, 8)).astype(np.float32)
+        ct = np.array([t % 3, (t + 1) % 3, (t + 2) % 3], np.int32)
+        jc = j_paged.append(jc, jcfg, jnp.asarray(k1), jnp.asarray(-k1), jnp.asarray(ct))
+        tc = paged.append(tc, tcfg, torch.tensor(k1), torch.tensor(-k1), torch.tensor(ct))
+    assert_cache_equal(jc, tc)
+    assert set(to_np(tc.tier).ravel().tolist()) == {-1, 0, 1, 2}
+    return jcfg, tcfg, jc, tc
+
+
+def _snapshot(c):
+    return [tuple(t.clone() for t in f) if isinstance(f, tuple) else f.clone() for f in c]
+
+
+def _assert_unchanged(c, snap):
+    for name, f, s in zip(paged.TieredKV._fields, c, snap):
+        for a, b in zip(f if isinstance(f, tuple) else (f,), s if isinstance(s, tuple) else (s,)):
+            assert torch.equal(a, b), f"{name} was written in place"
+
+
+def test_append_and_move_pages_leave_their_input_alone():
+    _, tcfg, _, tc = _mixed_cache()
+    snap = _snapshot(tc)
+    rng = np.random.default_rng(0)
+    k1 = torch.tensor(rng.standard_normal((3, 2, 8)).astype(np.float32))
+    for _ in range(2):  # the second append fills the open pages and commits them
+        out = paged.append(tc, tcfg, k1, -k1, torch.tensor([0, 1, 2], dtype=torch.int32))
+        _assert_unchanged(tc, snap)
+        tc, snap = out, _snapshot(out)
+    committed = np.argwhere(to_np(tc.tier) >= 0)
+    sel_b = torch.tensor(committed[:3, 0], dtype=torch.int32)
+    sel_p = torch.tensor(committed[:3, 1], dtype=torch.int32)
+    for tgt in (0, 1, 2):
+        out, moved = tiers._move_pages(tc, tcfg, sel_b, sel_p, tgt)
+        _assert_unchanged(tc, snap)
+        assert int(moved) > 0
+
+
+@pytest.mark.parametrize("tgt", [0, 1, 2])
+def test_move_pages_padded_lanes_do_not_clobber_page_0_0(tgt):
+    """-1-padded lanes clamp to (0, 0); with logical page (0, 0) itself moved
+    in another lane, the padded ones must not write over its table entries."""
+    jcfg, tcfg, jc, tc = _mixed_cache()
+    if int(to_np(tc.tier)[0, 0]) == tgt:  # move it away first
+        other = (tgt + 1) % 3
+        jc, _ = j_tiers._move_pages(jc, jcfg, jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32),
+                                    other)
+        tc, _ = tiers._move_pages(tc, tcfg, torch.zeros(1, dtype=torch.int32),
+                                  torch.zeros(1, dtype=torch.int32), other)
+    sel_b, sel_p = np.array([-1, 0, -1], np.int32), np.array([-1, 0, -1], np.int32)
+    jout, jn = j_tiers._move_pages(jc, jcfg, jnp.asarray(sel_b), jnp.asarray(sel_p), tgt)
+    tout, tn = tiers._move_pages(tc, tcfg, torch.tensor(sel_b), torch.tensor(sel_p), tgt)
+    assert int(jn) == int(tn) == 1
+    assert int(to_np(tout.tier)[0, 0]) == tgt
+    assert_cache_equal(jout, tout)
+
+
+def test_one_store_call_per_append_and_per_quantizing_move(monkeypatch):
+    """``append`` stores every committed page with one call of the store
+    entry, whatever tiers the pages land in; ``raro_step`` makes one for each
+    of its three moves into int8 or int4, and none for the move into bf16 —
+    the kernel launches the serve loop makes per layer and step."""
+    calls = []
+
+    def counted(fn):
+        def store(*a, **kw):
+            calls.append(kw.get("tiers"))
+            return fn(*a, **kw)
+        return store
+
+    monkeypatch.setattr(paged, "quant_store_pages", counted(paged.quant_store_pages))
+    monkeypatch.setattr(tiers, "quant_store_pages", counted(tiers.quant_store_pages))
+    _, tcfg, _, tc = _mixed_cache()
+    k1 = torch.ones((3, 2, 8))
+    calls.clear()
+    tc = paged.append(tc, tcfg, k1, k1, torch.tensor([0, 1, 2], dtype=torch.int32))
+    assert calls == [None]
+    calls.clear()
+    masses = torch.tensor(np.random.default_rng(1).random((3, 6)).astype(np.float32))
+    tiers.raro_step(tc, tcfg, tiers.RAROConfig(), masses)
+    assert calls == [(modes.TIER_INT8,), (modes.TIER_INT8,), (modes.TIER_INT4,)]
+    calls.clear()
+    tiers.raro_step(tc, tcfg, tiers.RAROConfig(enabled=False), masses)
+    assert calls == []
