@@ -34,6 +34,19 @@ Phases, one JSON line each:
   8. profile  torch.profiler over a few full-width RARO steps, and over one
               full-width prefill: the device's busy share and the kernels and host
               ops that take the time
+  9. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
+              engine.summarize) on the card at the paper's Table III geometry:
+              quickstart's three policies on 100,000 zipf-1.2 reads (closed loop),
+              RARO under the lattice timing model at obs_level "full" on the same
+              reads arriving open loop at 50,000 IOPS, and RARO on the endurance
+              geometry under a fault storm (GC, relocation, retirement, program
+              failures and uncorrectable reads with their rebuilds all firing). Each: the headline numbers, wall seconds and
+              simulated requests per second, host syncs per chunk by source line,
+              peak device memory, the device's busy share over a few profiled
+              chunks, check_invariants on the final state, and the card held chunk
+              by chunk against the port on the CPU (the first 16 chunks; the fault
+              storm whole) by tests/torch_ssd_compare.py's rule. No kernel: the
+              simulator's hot operations are plain PyTorch ops on the card
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -73,6 +86,13 @@ from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import base, registry, transformer  # noqa: E402
 from repro_torch.serving import serve_step  # noqa: E402
+from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
+from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
+from repro_torch.ssdsim import state as ssd_state  # noqa: E402
+from repro_torch.ssdsim import workload as ssd_workload  # noqa: E402
+
+sys.path.insert(0, str(ROOT / "tests"))
+import torch_ssd_compare  # noqa: E402  (the Layer A comparison rule, numpy and torch only)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -977,6 +997,151 @@ def phase_times(dev):
     return out
 
 
+SSD_REQUESTS = 100_000  # quickstart's default
+SSD_CMP_CHUNKS = 16  # chunks of (a)-RARO and (b) held against the CPU
+SSD_SYNC_CHUNKS = 8  # chunks whose host syncs are counted
+SSD_PROFILE_CHUNKS = 4  # chunks under the profiler
+
+
+def ssd_runs():
+    """The ssd phase's runs: (name, config, trace, chunks held against the
+    CPU: 0 none, None all)."""
+    G = ssd_geometry
+    mid = dict(initial_pe=500, device_age_h=24.0)  # configs/raro_ssd.py's MIDDLE
+    runs = []
+    for pol in (G.BASELINE, G.HOTNESS, G.RARO):  # (a) examples/quickstart.py
+        cfg = G.SimConfig(policy=pol, **mid)
+        runs.append((f"a_{G.POLICY_NAMES[pol]}", cfg,
+                     ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=1),
+                     SSD_CMP_CHUNKS if pol == G.RARO else 0))
+    # (b) experiments/scenarios.py::zipf_openloop's defaults (seed 0)
+    cfg = G.SimConfig(policy=G.RARO, chan_model="lattice", obs_level="full", **mid)
+    trace = ssd_workload.attach_arrivals(
+        cfg, ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=0), 50_000.0, seed=1)
+    runs.append(("b_raro_lattice_openloop_50k", cfg, trace, SSD_CMP_CHUNKS))
+    # (c) configs/raro_ssd.py's endurance geometry, old stage, fault_storm's
+    # trace at fault_storm_sweep's rates, parity rebuild, 16 spares, lifespan GC
+    cfg = G.SimConfig(policy=G.RARO, initial_pe=833, device_age_h=24.0, blocks_per_plane=64,
+                      slots_per_block=256, n_logical=57_344, chunk=256,
+                      migrate_pages_per_chunk=64, max_conversions_per_chunk=4,
+                      gc_free_threshold=24, gc_victims_per_pass=8, prog_fail_rate=0.005,
+                      erase_fail_rate=0.02, max_read_retries=10, parity_rebuild=True,
+                      spare_blocks=16, gc_objective="lifespan")
+    trace = ssd_workload.mixed_trace(cfg, 24_576, 1.2, read_frac=0.3, write_theta=2.0, seed=0)
+    runs.append(("c_raro_endurance_fault_storm", cfg, trace, None))
+    return runs
+
+
+def _ssd_chunks(trace, n=None):
+    """The trace's chunks as tuples of CPU tensors (the first ``n``)."""
+    keys = [k for k in ("lpn", "op", "arrival_ms") if k in trace]
+    arrs = [torch.from_numpy(np.ascontiguousarray(trace[k][:n])) for k in keys]
+    return [tuple(a[c] for a in arrs) for c in range(arrs[0].shape[0])]
+
+
+def ssd_lockstep(cfg, trace, n_chunks, dev):
+    """The card against the port on the CPU, step by step from the same
+    trace: both states and chunk metrics compared after every chunk by the
+    comparison rule (the first divergence, its chunk and leaves, is kept),
+    then both summaries; check_invariants on both final states."""
+    C = torch_ssd_compare
+    chunks = _ssd_chunks(trace, n_chunks)
+    has_writes = bool((trace["op"][:len(chunks)] == ssd_engine.OP_WRITE).any())
+    s_c = ssd_state.init_state(cfg, device="cpu")
+    s_d = ssd_state.init_state(cfg, device=dev)
+    first, lattice = None, cfg.chan_model == "lattice" and "arrival_ms" in trace
+    for c, req in enumerate(chunks):
+        s_c, y_c = ssd_engine.step_chunk(s_c, req, cfg, has_writes)
+        s_d, y_d = ssd_engine.step_chunk(s_d, tuple(x.to(dev) for x in req), cfg, has_writes)
+        if first is None:
+            loose = C.lindley_loose(s_c.obs_lat_mode.numpy()) if lattice else {}
+            bad = (C.compare_leaves(ssd_state.SSDState._fields, s_c, s_d, loose=loose)
+                   + C.compare_leaves(ssd_engine.ChunkMetrics._fields, y_c, y_d,
+                                      where="metrics."))
+            if bad:
+                first = dict(chunk=c, leaves=bad[:6])
+    ssd_state.check_invariants(s_c, cfg, "cpu")
+    ssd_state.check_invariants(s_d, cfg, "card")
+    loose = C.lindley_loose(s_c.obs_lat_mode.numpy()) if lattice else {}
+    bad_summary = C.compare_summaries(ssd_engine.summarize(s_c, cfg),
+                                      ssd_engine.summarize(s_d, cfg), loose=loose)
+    return dict(chunks=len(chunks), first_divergence=first, summary_mismatches=bad_summary)
+
+
+def phase_ssd(dev):
+    """Layer A on the card (see the module docstring, phase 9)."""
+    out = {}
+    for name, cfg, trace, cmp_chunks in ssd_runs():
+        n_chunks = trace["lpn"].shape[0]
+        if not out:  # a short warm-up run: the first run pays one-time costs
+            ssd_engine.run(cfg, {k: v[:2] for k, v in trace.items()}, device=dev)
+            torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        s, m = ssd_engine.run(cfg, trace, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(s.clock_ms.device.type == "cuda", f"{name}: the state is not on the card")
+        ssd_state.check_invariants(s, cfg, name)
+        summ = ssd_engine.summarize(s, cfg)
+        check(all(math.isfinite(v) for v in summ.values() if isinstance(v, float)),
+              f"{name}: a summary value is not finite")
+        check(int(m.reads.sum()) == int(summ["reads"]) and summ["reads"] > 0,
+              f"{name}: chunk reads do not add up to the run's")
+        if name.startswith("c_"):
+            check(summ["erases"] > 0 and summ["prog_fails"] > 0 and summ["bad_blocks"] > 0,
+                  f"{name}: the fault storm did not fire GC and faults: {summ['erases']} "
+                  f"erases, {summ['prog_fails']} prog fails, {summ['bad_blocks']} bad blocks")
+
+        # host syncs of the first chunks (their trace upload included), by line
+        prefix = {k: v[:SSD_SYNC_CHUNKS] for k, v in trace.items()}
+        (s8, _), syncs = host_syncs(lambda: ssd_engine.run(cfg, prefix, device=dev))
+        per_chunk = {k: v / SSD_SYNC_CHUNKS for k, v in Counter(syncs).most_common()}
+
+        # the device's busy share over a few chunks after those
+        chunks = _ssd_chunks(trace)[SSD_SYNC_CHUNKS:SSD_SYNC_CHUNKS + SSD_PROFILE_CHUNKS]
+        has_writes = bool((trace["op"] == ssd_engine.OP_WRITE).any())
+
+        def steps(state=s8):
+            for req in chunks:
+                state, _ = ssd_engine.step_chunk(state, tuple(x.to(dev) for x in req), cfg,
+                                                 has_writes)
+
+        wall_ms, device_ms, cpu_ms = profiled(steps)
+        busy = sum(device_ms.values())
+
+        cmp = None
+        if cmp_chunks != 0:
+            cmp = ssd_lockstep(cfg, trace, cmp_chunks, dev)
+            check(cmp["first_divergence"] is None and not cmp["summary_mismatches"],
+                  f"{name}: the card diverges from the CPU: {cmp}")
+        out[name] = summ
+        emit("ssd", run=name, n_blocks=cfg.n_blocks, n_slots=cfg.n_slots,
+             n_logical=cfg.n_logical, chunk=cfg.chunk, chunks=n_chunks,
+             requests=int(trace["lpn"].size), open_loop="arrival_ms" in trace,
+             chan_model=cfg.chan_model, obs_level=cfg.obs_level,
+             **{k: summ[k] for k in ("iops", "retries_per_read", "capacity_loss_gib",
+                                     "migrated_pages", "erases", "read_lat_p99_us")},
+             faults={k: summ[k] for k in ("uncorrectable_reads", "prog_fails", "erase_fails",
+                                          "bad_blocks", "rebuilds", "data_loss",
+                                          "dropped_writes")},
+             wall_s=wall, sim_requests_per_s=trace["lpn"].size / wall,
+             host_syncs_per_chunk=sum(per_chunk.values()), host_syncs_by_line=per_chunk,
+             max_memory_allocated=peak,
+             profile=dict(chunks=len(chunks), wall_ms=wall_ms, device_busy_ms=busy,
+                          device_busy_share=busy / wall_ms if busy else None,
+                          top_device_ms=top(device_ms, 1, 6),
+                          top_host_inclusive_ms=top(cpu_ms, 1, 6)),
+             card_vs_cpu=cmp)
+    b, h, r = (out[f"a_{n}"] for n in ("baseline", "hotness", "raro"))
+    emit("ssd", quickstart_ratios=dict(
+        raro_over_baseline_iops=r["iops"] / b["iops"],
+        raro_over_hotness_capacity_loss_saved=1 - r["capacity_loss_gib"]
+        / max(h["capacity_loss_gib"], 1e-9)))
+    return out
+
+
 def _mean_row(rows):
     """One launch, averaged over the tiers timed: its times and its bound."""
     mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
@@ -987,7 +1152,8 @@ def _mean_row(rows):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="device, build, and each kernel against plain at full width only")
+                    help="device, build, and each kernel against plain at full width only "
+                         "(no path, serve, prefill, times, profile or ssd phase)")
     a = ap.parse_args()
 
     phase_device()
@@ -1008,6 +1174,7 @@ def main():
         times = phase_times(dev)  # before the profiler, whose cost outlasts its window
         phase_profile(dev, cfg)
         phase_profile_prefill(dev, cfg)
+        phase_ssd(dev)
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
         print(json.dumps({"kernels": [

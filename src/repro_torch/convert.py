@@ -65,3 +65,25 @@ def tieredkv_from_numpy(leaves, device=None) -> TieredKV:
     conv = {k: tensor_from_numpy(v, device) for k, v in fields.items() if k != "free"}
     conv["free"] = tuple(tensor_from_numpy(f, device) for f in fields["free"])
     return TieredKV(**conv)
+
+
+def ssd_state_from_numpy(leaves, device=None):
+    """The simulator state (``repro_torch.ssdsim.state.SSDState``) from the
+    reference's ``SSDState`` with numpy leaves (a NamedTuple, a dict of its
+    fields, or a sequence in field order), every dtype kept, on ``device``
+    (CUDA unless the caller names one)."""
+    from repro_torch.ssdsim.state import SSDState
+
+    device = resolve_device(device)
+    if hasattr(leaves, "_asdict"):
+        leaves = leaves._asdict()
+    if isinstance(leaves, dict):
+        return SSDState(**{k: tensor_from_numpy(v, device) for k, v in leaves.items()})
+    return SSDState(*[tensor_from_numpy(v, device) for v in leaves])
+
+
+def ssd_state_to_numpy(state):
+    """The port's simulator state with numpy leaves (one copy to the host per
+    leaf), in field order, for the reference's ``SSDState(*leaves)``."""
+    return type(state)(*[x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                         else np.asarray(x) for x in state])

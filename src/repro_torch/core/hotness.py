@@ -1,7 +1,7 @@
 """Heat classifier (paper §IV-A) — exponential-decay access-frequency counters.
 
-Counterpart of ``repro.core.hotness`` (the parts the KV-cache tier manager
-uses: ``HeatConfig``, ``decay_heat``, ``classify``).
+Counterpart of ``repro.core.hotness``: counters for the SSD simulator (per
+logical page) and the KV-cache tier manager (per KV page).
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import ops
 from repro_torch.core import modes
 
 
@@ -23,6 +24,17 @@ class HeatConfig(NamedTuple):
 
 def decay_heat(heat, cfg: HeatConfig):
     return heat * cfg.decay
+
+
+def accumulate(heat, idx, amount=1.0):
+    """Scatter-add ``amount`` at ``idx`` (duplicate indices accumulate;
+    indices outside the array are dropped, negative ones wrap)."""
+    return ops.at_add(heat, idx, amount)
+
+
+def update_heat(heat, idx, cfg: HeatConfig, amount=1.0):
+    """One epoch: decay everything, then credit the accessed entries."""
+    return accumulate(decay_heat(heat, cfg), idx, amount)
 
 
 def classify(heat, cfg: HeatConfig):

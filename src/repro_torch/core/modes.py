@@ -67,3 +67,47 @@ def table(values, device, dtype=None) -> torch.Tensor:
 @functools.cache
 def _table(values, dtype, device):
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+# Rated P/E endurance as the device table of traced scorers
+# (``table(PE_LIMIT, device)``); the same values as RATED_PE.
+PE_LIMIT = RATED_PE
+
+
+def stage_of(pe_cycles):
+    """Map P/E-cycle counts to wear stages per Table I (young/middle/old), int32."""
+    pe = torch.as_tensor(pe_cycles)
+    return torch.where(pe <= 333, STAGE_YOUNG,
+                       torch.where(pe <= 666, STAGE_MIDDLE, STAGE_OLD)).to(torch.int32)
+
+
+# Endurance conversion helpers (DESIGN.md §2E), host-side floats, JEDEC
+# JESD218-style definitions:
+#   TBW  = capacity × rated P/E ÷ WAF   (total host bytes writable)
+#   DWPD = host bytes/day ÷ capacity    (drive writes per day)
+#   lifetime = TBW ÷ host bytes/day     (years until rated wear exhausted)
+_DAYS_PER_YEAR = 365.25
+
+
+def tbw_bytes(capacity_bytes, rated_pe_cycles, waf=1.0):
+    """Total host bytes writable before rated wear is exhausted."""
+    return float(capacity_bytes) * float(rated_pe_cycles) / max(float(waf), 1e-12)
+
+
+def dwpd(host_bytes_per_day, capacity_bytes):
+    """Drive writes per day at the observed host write rate."""
+    return float(host_bytes_per_day) / max(float(capacity_bytes), 1e-12)
+
+
+def lifetime_years(tbw, host_bytes_per_day):
+    """Years until ``tbw`` is exhausted at the observed host write rate; 0.0
+    when no host writes were observed."""
+    if float(host_bytes_per_day) <= 0.0:
+        return 0.0
+    return float(tbw) / (float(host_bytes_per_day) * _DAYS_PER_YEAR)
+
+
+def dwpd_for_lifetime(tbw, capacity_bytes, years):
+    """Sustainable DWPD for a target lifetime: TBW ÷ (capacity × days)."""
+    denom = max(float(capacity_bytes) * float(years) * _DAYS_PER_YEAR, 1e-12)
+    return float(tbw) / denom

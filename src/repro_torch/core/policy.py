@@ -1,6 +1,6 @@
 """RARO migration principles — Table II of the paper.
 
-Counterpart of ``repro.core.policy`` (``Thresholds``, ``migration_decision``).
+Counterpart of ``repro.core.policy``.
 
 | NAND | Access frequency | Retry count        | Conversion |
 |------|------------------|--------------------|------------|
@@ -43,4 +43,21 @@ def migration_decision(mode, heat_cls, retries, th: Thresholds):
     # QLC->SLC takes precedence over QLC->TLC.
     target = torch.where(qlc_hot, modes.SLC, target)
     target = torch.where(tlc_hot, modes.SLC, target)
+    return target.to(torch.int32)
+
+
+def stage_thresholds(pe_cycles, r1: int = DEFAULT_R1) -> Thresholds:
+    """Per-element thresholds with the paper's stage-adaptive R2 schedule."""
+    stage = modes.stage_of(pe_cycles)
+    return Thresholds(r1, modes.table(R2_BY_STAGE, stage.device)[stage.long()])
+
+
+def hotness_only_decision(mode, heat_cls):
+    """The paper's 'Hotness' comparison scheme: temperature-only 3-mode
+    conversion, ignoring retry counts (the capacity-loss baseline)."""
+    mode = mode.to(torch.int32)
+    heat_cls = heat_cls.to(torch.int32)
+    target = torch.where((mode == modes.QLC) & (heat_cls == modes.WARM), modes.TLC, mode)
+    target = torch.where((mode == modes.QLC) & (heat_cls == modes.HOT), modes.SLC, target)
+    target = torch.where((mode == modes.TLC) & (heat_cls == modes.HOT), modes.SLC, target)
     return target.to(torch.int32)

@@ -1,7 +1,6 @@
 """Read-retry model — Equations (2)/(3) of the paper.
 
-Counterpart of ``repro.core.retry`` (``expected_retries``, ``retry_count``,
-``page_retries``):
+Counterpart of ``repro.core.retry``:
 
 ``n_RETRY >= log_{1-delta}( E_LDPC / (a * RBER * n_SENSE) )``        (3)
 """
@@ -49,3 +48,10 @@ def page_retries(mode, cycles, time_h, reads, page_ids):
     """Full pipeline: Eq.(1) per-page RBER -> Eq.(3) retry count."""
     r = rber_mod.page_rber(mode, cycles, time_h, reads, page_ids)
     return retry_count(mode, r)
+
+
+def read_latency_us(mode, n_retries):
+    """Service time of a page read: base sense + one extra sense per retry
+    (Fig. 4: for QLC, 1 retry doubles the latency, 10 retries make it 11x)."""
+    base = modes.table(modes.READ_LATENCY_US, mode.device)[mode.long()]
+    return base * (1.0 + n_retries.float())
