@@ -47,6 +47,19 @@ Phases, one JSON line each:
               by chunk against the port on the CPU (the first 16 chunks; the fault
               storm whole) by tests/torch_ssd_compare.py's rule. No kernel: the
               simulator's hot operations are plain PyTorch ops on the card
+ 10. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
+              (a) configs/raro_ssd.py's tail_latency_sweep() whole (Table III
+              geometry, read_disturb_hammer, 80,000 requests, Baseline and RARO
+              x P/E 166 and 833 x seeds 0 and 1): each run's headline numbers,
+              the grid's and each group's wall seconds and simulated requests
+              per second, every state on the card, RARO's read p99 below
+              Baseline's, and a resume after the RARO group's checkpoint is
+              deleted equal to the first run; (b) its RARO P/E 833 seed 0 run
+              with its knobs on the card and on the CPU together, compared
+              every 8th chunk and at the end, and the card's summary equal to
+              the sweep's; (c) latency_load_sweep() at 16,384 requests: mean
+              read latency never falls as the offered load rises; (d) the
+              Chrome trace of the ssd phase's open-loop run, schema-checked
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -57,11 +70,13 @@ import ctypes
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
 import warnings
 from collections import Counter
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -70,7 +85,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import tinyllama_1_1b  # noqa: E402
+from repro_torch.configs import raro_ssd, tinyllama_1_1b  # noqa: E402
+from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
@@ -88,7 +104,9 @@ from repro_torch.models import base, registry, transformer  # noqa: E402
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
 from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
+from repro_torch.ssdsim import obs as ssd_obs  # noqa: E402
 from repro_torch.ssdsim import state as ssd_state  # noqa: E402
+from repro_torch.ssdsim import trace_export  # noqa: E402
 from repro_torch.ssdsim import workload as ssd_workload  # noqa: E402
 
 sys.path.insert(0, str(ROOT / "tests"))
@@ -1007,26 +1025,25 @@ def ssd_runs():
     """The ssd phase's runs: (name, config, trace, chunks held against the
     CPU: 0 none, None all)."""
     G = ssd_geometry
-    mid = dict(initial_pe=500, device_age_h=24.0)  # configs/raro_ssd.py's MIDDLE
     runs = []
     for pol in (G.BASELINE, G.HOTNESS, G.RARO):  # (a) examples/quickstart.py
-        cfg = G.SimConfig(policy=pol, **mid)
+        cfg = replace(raro_ssd.MIDDLE, policy=pol)
         runs.append((f"a_{G.POLICY_NAMES[pol]}", cfg,
                      ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=1),
                      SSD_CMP_CHUNKS if pol == G.RARO else 0))
     # (b) experiments/scenarios.py::zipf_openloop's defaults (seed 0)
-    cfg = G.SimConfig(policy=G.RARO, chan_model="lattice", obs_level="full", **mid)
+    cfg = replace(raro_ssd.MIDDLE, chan_model="lattice", obs_level="full")
     trace = ssd_workload.attach_arrivals(
         cfg, ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=0), 50_000.0, seed=1)
     runs.append(("b_raro_lattice_openloop_50k", cfg, trace, SSD_CMP_CHUNKS))
     # (c) configs/raro_ssd.py's endurance geometry, old stage, fault_storm's
     # trace at fault_storm_sweep's rates, parity rebuild, 16 spares, lifespan GC
-    cfg = G.SimConfig(policy=G.RARO, initial_pe=833, device_age_h=24.0, blocks_per_plane=64,
-                      slots_per_block=256, n_logical=57_344, chunk=256,
-                      migrate_pages_per_chunk=64, max_conversions_per_chunk=4,
-                      gc_free_threshold=24, gc_victims_per_pass=8, prog_fail_rate=0.005,
-                      erase_fail_rate=0.02, max_read_retries=10, parity_rebuild=True,
-                      spare_blocks=16, gc_objective="lifespan")
+    storm = raro_ssd.fault_storm_sweep()
+    cfg = replace(raro_ssd.endurance_sweep().base, policy=G.RARO,
+                  initial_pe=raro_ssd.OLD.initial_pe, prog_fail_rate=storm.prog_fail_rate[-1],
+                  erase_fail_rate=storm.erase_fail_rate[0],
+                  max_read_retries=storm.max_read_retries[0], parity_rebuild=True,
+                  spare_blocks=16, gc_objective="lifespan")
     trace = ssd_workload.mixed_trace(cfg, 24_576, 1.2, read_frac=0.3, write_theta=2.0, seed=0)
     runs.append(("c_raro_endurance_fault_storm", cfg, trace, None))
     return runs
@@ -1034,25 +1051,34 @@ def ssd_runs():
 
 def _ssd_chunks(trace, n=None):
     """The trace's chunks as tuples of CPU tensors (the first ``n``)."""
-    keys = [k for k in ("lpn", "op", "arrival_ms") if k in trace]
-    arrs = [torch.from_numpy(np.ascontiguousarray(trace[k][:n])) for k in keys]
-    return [tuple(a[c] for a in arrs) for c in range(arrs[0].shape[0])]
+    return ssd_engine.trace_chunks({k: v[:n] for k, v in trace.items()}, "cpu")
 
 
-def ssd_lockstep(cfg, trace, n_chunks, dev):
+def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
     """The card against the port on the CPU, step by step from the same
-    trace: both states and chunk metrics compared after every chunk by the
-    comparison rule (the first divergence, its chunk and leaves, is kept),
-    then both summaries; check_invariants on both final states."""
+    trace (and ``knobs``, a ``RunKnobs`` on the CPU, as a sweep run takes
+    them): both states and chunk metrics compared after every ``every``-th
+    chunk and the last by the comparison rule (the first divergence, its
+    chunk and leaves, is kept), then both summaries; check_invariants on both
+    final states."""
     C = torch_ssd_compare
     chunks = _ssd_chunks(trace, n_chunks)
     has_writes = bool((trace["op"][:len(chunks)] == ssd_engine.OP_WRITE).any())
-    s_c = ssd_state.init_state(cfg, device="cpu")
-    s_d = ssd_state.init_state(cfg, device=dev)
+    knobs_d = None if knobs is None else type(knobs)(
+        *[None if k is None else k.to(dev) for k in knobs])
+    init = {} if knobs is None else dict(initial_pe=knobs.initial_pe,
+                                         spare_blocks=knobs.spare_blocks)
+    s_c = ssd_state.init_state(cfg, device="cpu", **init)
+    s_d = ssd_state.init_state(cfg, device=dev, **init)
     first, lattice = None, cfg.chan_model == "lattice" and "arrival_ms" in trace
+    compared = 0
     for c, req in enumerate(chunks):
-        s_c, y_c = ssd_engine.step_chunk(s_c, req, cfg, has_writes)
-        s_d, y_d = ssd_engine.step_chunk(s_d, tuple(x.to(dev) for x in req), cfg, has_writes)
+        s_c, y_c = ssd_engine.step_chunk(s_c, req, cfg, has_writes, knobs)
+        s_d, y_d = ssd_engine.step_chunk(s_d, tuple(x.to(dev) for x in req), cfg, has_writes,
+                                         knobs_d)
+        if (c + 1) % every and c + 1 < len(chunks):
+            continue
+        compared += 1
         if first is None:
             loose = C.lindley_loose(s_c.obs_lat_mode.numpy()) if lattice else {}
             bad = (C.compare_leaves(ssd_state.SSDState._fields, s_c, s_d, loose=loose)
@@ -1063,14 +1089,16 @@ def ssd_lockstep(cfg, trace, n_chunks, dev):
     ssd_state.check_invariants(s_c, cfg, "cpu")
     ssd_state.check_invariants(s_d, cfg, "card")
     loose = C.lindley_loose(s_c.obs_lat_mode.numpy()) if lattice else {}
-    bad_summary = C.compare_summaries(ssd_engine.summarize(s_c, cfg),
-                                      ssd_engine.summarize(s_d, cfg), loose=loose)
-    return dict(chunks=len(chunks), first_divergence=first, summary_mismatches=bad_summary)
+    summ_c, summ_d = ssd_engine.summarize(s_c, cfg), ssd_engine.summarize(s_d, cfg)
+    bad_summary = C.compare_summaries(summ_c, summ_d, loose=loose)
+    return dict(chunks=len(chunks), compared=compared, first_divergence=first,
+                summary_mismatches=bad_summary), summ_d
 
 
 def phase_ssd(dev):
-    """Layer A on the card (see the module docstring, phase 9)."""
-    out = {}
+    """Layer A on the card (see the module docstring, phase 9). Returns the
+    summaries, and the open-loop run's (config, final state) by name."""
+    out, states = {}, {}
     for name, cfg, trace, cmp_chunks in ssd_runs():
         n_chunks = trace["lpn"].shape[0]
         if not out:  # a short warm-up run: the first run pays one-time costs
@@ -1113,10 +1141,12 @@ def phase_ssd(dev):
 
         cmp = None
         if cmp_chunks != 0:
-            cmp = ssd_lockstep(cfg, trace, cmp_chunks, dev)
+            cmp, _ = ssd_lockstep(cfg, trace, cmp_chunks, dev)
             check(cmp["first_divergence"] is None and not cmp["summary_mismatches"],
                   f"{name}: the card diverges from the CPU: {cmp}")
         out[name] = summ
+        if name.startswith("b_"):
+            states[name] = (cfg, s)
         emit("ssd", run=name, n_blocks=cfg.n_blocks, n_slots=cfg.n_slots,
              n_logical=cfg.n_logical, chunk=cfg.chunk, chunks=n_chunks,
              requests=int(trace["lpn"].size), open_loop="arrival_ms" in trace,
@@ -1139,7 +1169,198 @@ def phase_ssd(dev):
         raro_over_baseline_iops=r["iops"] / b["iops"],
         raro_over_hotness_capacity_loss_saved=1 - r["capacity_loss_gib"]
         / max(h["capacity_loss_gib"], 1e-9)))
-    return out
+    return out, states
+
+
+SWEEP_DIR = ROOT / "build" / "chip_smoke_sweep"  # git-ignored
+SWEEP_CMP_EVERY = 8  # (b) compares the card with the CPU every 8th chunk and at the end
+SWEEP_LOAD_REQUESTS = 16_384  # (c): latency_load_sweep's 80,000 cut to fit the script's time
+
+
+class StepWatch:
+    """While active, wraps ``engine.step_chunk`` (which ``sweep.run_one``
+    calls): counts the steps of each policy group, times each group from its
+    first step to its last (a synchronize after each step), and counts the
+    state and knob tensors that are not on the card."""
+
+    def __init__(self):
+        self.steps, self.first, self.last, self.off_card = Counter(), {}, {}, 0
+
+    def __enter__(self):
+        self.real = ssd_engine.step_chunk
+
+        def step(s, req, cfg, has_writes, knobs=None):
+            t0 = time.perf_counter()
+            out = self.real(s, req, cfg, has_writes, knobs)
+            torch.cuda.synchronize()
+            name = ssd_geometry.POLICY_NAMES[cfg.policy]
+            self.first.setdefault(name, t0)
+            self.last[name] = time.perf_counter()
+            self.steps[name] += 1
+            leaves = list(out[0]) + [k for k in (knobs or ()) if isinstance(k, torch.Tensor)]
+            self.off_card += sum(x.device.type != "cuda" for x in leaves)
+            return out
+
+        ssd_engine.step_chunk = step
+        return self
+
+    def __exit__(self, *exc):
+        ssd_engine.step_chunk = self.real
+
+    def group_s(self, name):
+        return self.last[name] - self.first[name]
+
+
+def _sweep_row(r):
+    return dict(tag=r["run"]["tag"], **{k: r[k] for k in (
+        "iops", "mean_read_latency_us", "read_lat_p50_us", "read_lat_p99_us",
+        "read_lat_p999_us", "retries_per_read", "migrated_pages", "capacity_loss_gib")})
+
+
+def chrome_trace_schema(doc, cfg, s):
+    """tests/test_obs.py's Chrome-trace checks (test_schema, and
+    test_event_slices_match_ring against the event ring of state ``s``)."""
+    evs = doc["traceEvents"]
+    body = [e for e in evs if e["ph"] != "M"]
+    check(body, "the Chrome trace has no events")
+    for e in evs:
+        check(e["ph"] in ("M", "X", "C") and isinstance(e["pid"], int)
+              and isinstance(e["tid"], int), f"bad trace event {e}")
+        if e["ph"] == "X":
+            check(e["ts"] >= 0 and e["dur"] > 0 and e["pid"] == trace_export.PID_FLASH
+                  and 0 <= e["tid"] <= trace_export.policy_tid(cfg), f"bad slice {e}")
+        if e["ph"] == "C":
+            check(e["pid"] == trace_export.PID_TELEMETRY, f"bad counter {e}")
+    ts = [e["ts"] for e in body]
+    check(all(a <= b for a, b in zip(ts, ts[1:])), "trace ts not monotone")
+    names = {e["args"]["name"] for e in evs if e["ph"] == "M" and e["name"] == "thread_name"}
+    check({f"die {d} (chan {cfg.channel_of_die(d)})" for d in range(cfg.n_dies)} <= names
+          and {f"channel {c} bus" for c in range(cfg.n_channels)} <= names
+          and "policy (page-granular)" in names, f"trace tracks missing: {names}")
+    x = [e for e in body if e["ph"] == "X"]
+    reloc = [e for e in x if e["cat"] == "relocation"]
+    xfer = [e for e in x if e["cat"] == "transfer"]
+    check(all(cfg.n_dies <= e["tid"] < cfg.n_dies + cfg.n_channels for e in xfer),
+          "a transfer slice is off the channel tracks")
+    records, total, _ = ssd_obs.decode_events(s, cfg)
+    check(len(reloc) == len(records) and doc["otherData"]["events_total"] == total
+          and len(xfer) == sum(r["block"] >= 0 and r["pages"] > 0 for r in records),
+          f"trace slices {len(reloc)}/{len(xfer)} against {len(records)} ring events")
+    return dict(events=len(evs), slices=len(x), relocations=len(reloc), transfers=len(xfer),
+                counters=sum(e["ph"] == "C" for e in body))
+
+
+def phase_sweep(dev, b_cfg, b_state):
+    """The experiment sweep on the card (see the module docstring, phase 10).
+    ``b_cfg`` and ``b_state`` are the ssd phase's open-loop run, for (d)."""
+    G = ssd_geometry
+    shutil.rmtree(SWEEP_DIR, ignore_errors=True)  # a fresh grid: no checkpoint of an earlier run
+    reset_counts()
+
+    # (a) the canonical tail-latency grid, whole, with per-group checkpoints
+    spec = raro_ssd.tail_latency_sweep()
+    resume = SWEEP_DIR / "tail_latency"
+    n_chunks = -(-spec.n_requests // spec.base.chunk)
+    t0 = time.perf_counter()
+    with StepWatch() as watch:
+        res = ssd_sweep.run_sweep(spec, resume_dir=resume)
+    wall = time.perf_counter() - t0
+    per_group = len(res) // len(spec.policies)
+    check(len(res) == spec.n_runs() == 8, f"{len(res)} results for an 8-run grid")
+    check(dict(watch.steps) == {G.POLICY_NAMES[p]: per_group * n_chunks for p in spec.policies},
+          f"steps by group {dict(watch.steps)}, not {per_group} x {n_chunks}")
+    check(watch.off_card == 0, f"{watch.off_card} state or knob tensors left the card")
+    for r in res:
+        check(all(math.isfinite(v) for v in r.values() if isinstance(v, float)),
+              f"{r['run']['tag']}: a result is not finite")
+        check(r["reads"] == spec.n_requests, f"{r['run']['tag']}: {r['reads']} reads")
+    by = {r["run"]["tag"]: r for r in res}
+    p99 = {}
+    for pe in spec.initial_pe:
+        for seed in spec.seeds:
+            b, r = (by[f"{spec.scenario}_{p}_pe{pe}_seed{seed}"] for p in ("baseline", "raro"))
+            p99[f"pe{pe}_seed{seed}"] = [b["read_lat_p99_us"], r["read_lat_p99_us"]]
+            check(r["read_lat_p99_us"] < b["read_lat_p99_us"],
+                  f"RARO's read p99 is not below Baseline's at P/E {pe} seed {seed}: "
+                  f"{r['read_lat_p99_us']} vs {b['read_lat_p99_us']}")
+    reqs = spec.n_requests * per_group
+    emit("sweep", part="a_grid", spec=dict(scenario=spec.scenario, n_requests=spec.n_requests,
+                                           initial_pe=spec.initial_pe, seeds=spec.seeds,
+                                           n_blocks=spec.base.n_blocks,
+                                           n_slots=spec.base.n_slots,
+                                           n_logical=spec.base.n_logical, chunk=spec.base.chunk),
+         runs=len(res), chunks_per_run=n_chunks, wall_s=wall,
+         sim_requests_per_s=len(res) * spec.n_requests / wall,
+         groups={name: dict(runs=per_group, wall_s=watch.group_s(name),
+                            sim_requests_per_s=reqs / watch.group_s(name))
+                 for name in watch.steps},
+         p99_baseline_raro_us=p99, states_off_card=watch.off_card)
+    for r in res:
+        emit("sweep", part="a_run", **_sweep_row(r))
+
+    # (a) a partial resume: the RARO group recomputed on the card, Baseline loaded
+    raro_ckpt = ssd_sweep._group_ckpt_path(resume, spec, G.RARO)
+    check(raro_ckpt.exists() and ssd_sweep._group_ckpt_path(resume, spec, G.BASELINE).exists(),
+          "the grid wrote no checkpoints")
+    raro_ckpt.unlink()
+    t0 = time.perf_counter()
+    with StepWatch() as again:
+        res2 = ssd_sweep.run_sweep(spec, resume_dir=resume)
+    wall2 = time.perf_counter() - t0
+    check(dict(again.steps) == {"raro": per_group * n_chunks},
+          f"the resume stepped {dict(again.steps)}, not RARO's group alone")
+    ssd_sweep.assert_results_identical(res, res2)
+    emit("sweep", part="a_partial_resume", recomputed="raro", loaded="baseline", wall_s=wall2,
+         identical=True)
+
+    # (b) one run of the grid with its knobs: the card against the CPU, whole
+    run = next(r for r in ssd_sweep.expand(spec)
+               if r.policy == G.RARO and r.initial_pe == 833 and r.seed == 0)
+    trace = ssd_sweep.registry.build(spec.scenario, spec.base, spec.n_requests, seed=run.seed)
+    knobs = ssd_sweep.run_knobs(run, spec, open_loop=False, device="cpu")
+    t0 = time.perf_counter()
+    cmp, summ_d = ssd_lockstep(replace(spec.base, policy=G.RARO), trace, None, dev,
+                               knobs=knobs, every=SWEEP_CMP_EVERY)
+    check(cmp["first_divergence"] is None and not cmp["summary_mismatches"],
+          f"{run.tag()}: the card diverges from the CPU: {cmp}")
+    check(cmp["chunks"] == n_chunks, f"(b) stepped {cmp['chunks']} of {n_chunks} chunks")
+    swept = by[run.tag()]
+    ssd_sweep.assert_results_identical([swept], [dict(summ_d, run=swept["run"])])
+    emit("sweep", part="b_card_vs_cpu", tag=run.tag(), card_vs_cpu=cmp,
+         card_summary_equals_sweep=True, wall_s=time.perf_counter() - t0)
+
+    # (c) the open-loop knob: offered load swept through RunKnobs.arrival_scale
+    load = raro_ssd.latency_load_sweep(n_requests=SWEEP_LOAD_REQUESTS)
+    t0 = time.perf_counter()
+    with StepWatch() as lw:
+        lres = ssd_sweep.run_sweep(load)
+    lwall = time.perf_counter() - t0
+    check(lw.off_card == 0, f"{lw.off_card} state or knob tensors left the card")
+    curves = {}
+    for pol in load.policies:
+        name = G.POLICY_NAMES[pol]
+        rows = [r for r in lres if r["run"]["policy"] == name]
+        check([r["run"]["arrival_scale"] for r in rows] == list(load.arrival_scale),
+              f"{name}: arrival_scale {[r['run']['arrival_scale'] for r in rows]}")
+        mean = [r["mean_read_latency_us"] for r in rows]
+        check(all(a <= b for a, b in zip(mean, mean[1:])),
+              f"{name}: mean read latency falls as the offered load rises: {mean}")
+        curves[name] = [dict(arrival_scale=r["run"]["arrival_scale"],
+                             mean_read_latency_us=r["mean_read_latency_us"],
+                             read_lat_p99_us=r["read_lat_p99_us"],
+                             read_queue_delay_us=r["read_queue_delay_us"], iops=r["iops"])
+                        for r in rows]
+    emit("sweep", part="c_latency_load", scenario=load.scenario,
+         n_requests=load.n_requests, cut="n_requests 80,000 -> 16,384 (the script's time)",
+         rate_iops=dict(load.scenario_kw)["rate_iops"], runs=len(lres), wall_s=lwall,
+         sim_requests_per_s=len(lres) * load.n_requests / lwall, curves=curves)
+
+    # (d) the Chrome trace of the ssd phase's open-loop lattice run
+    path = trace_export.write_chrome_trace(b_state, b_cfg, SWEEP_DIR / "trace_b_lattice.json")
+    schema = chrome_trace_schema(json.loads(path.read_text()), b_cfg, b_state)
+    emit("sweep", part="d_chrome_trace", path=str(path.relative_to(ROOT)),
+         bytes=path.stat().st_size, **schema)
+    emit("sweep", kernel_launches=counts())
 
 
 def _mean_row(rows):
@@ -1153,7 +1374,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile or ssd phase)")
+                         "(no path, serve, prefill, times, profile, ssd or sweep phase)")
     a = ap.parse_args()
 
     phase_device()
@@ -1174,7 +1395,8 @@ def main():
         times = phase_times(dev)  # before the profiler, whose cost outlasts its window
         phase_profile(dev, cfg)
         phase_profile_prefill(dev, cfg)
-        phase_ssd(dev)
+        _, ssd_states = phase_ssd(dev)
+        phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
         print(json.dumps({"kernels": [

@@ -19,14 +19,17 @@ nothing else in a step makes the host wait.
 
 Floats: every division by a constant is a multiply by its float32
 reciprocal and ``device_age_h + Δt / 3.6e6`` is one rounding (``ftl``), as
-the reference's compiled program computes them; float sums of unequal
-values (busy times, the Lindley prefix sums) add in another order than the
-reference's and agree to float32 rounding, which feeds no integer decision
-but through the page ages, where it is far below one ulp of the age.
+the reference's compiled program computes them; a channel's transfer time
+is its read count's worth of one constant, summed in the reference's order
+(``_repeated_sums``); float sums of unequal values (busy times, the Lindley
+prefix sums) add in another order than the reference's and agree to
+float32 rounding, which feeds no integer decision but through the page
+ages, where it is far below one ulp of the age.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -109,6 +112,69 @@ def lookup(s: st.SSDState, lpns, cfg: geometry.SimConfig):
 
 def _f32(x: float) -> float:
     return float(np.float32(x))
+
+
+@functools.cache
+def _repeated_sums(x: float, n: int, device) -> torch.Tensor:
+    """(n + 1,) float32 on ``device``: entry k is k copies of ``x`` added one
+    at a time in float32. The reference's ``segment_sum`` adds its lanes in
+    order; for k equal values that order rounds away from ``k * x`` by up to
+    ~1e-5 of the sum at k ~ 1,000, where a tree-ordered sum does not."""
+    sums = np.cumsum(np.full(n, x, np.float32), dtype=np.float32)  # sequential, in float32
+    return torch.from_numpy(np.concatenate([np.zeros(1, np.float32), sums])).to(device)
+
+
+def write_path_reference(s: st.SSDState, lpns, is_write, cfg: geometry.SimConfig):
+    """Sequential user-write path, one request at a time (the reference's
+    per-request ``lax.scan``, here a Python loop over host ints).
+
+    A test oracle only: the property tests hold :func:`write_path_batched`
+    to it on arbitrary mixed traces. One loop step per request, so keep it
+    to ``tiny_config``-sized chunks. Returns a new state; ``s`` is left as
+    it was."""
+    spb = cfg.slots_per_block
+    ppb_q = int(geometry.pages_per_block_host(cfg)[modes.QLC])
+    dev = lpns.device
+    w_lat_us = torch.tensor(modes.WRITE_LATENCY_US[modes.QLC] + cfg.transfer_us,
+                            dtype=torch.float32, device=dev)
+    one = torch.ones((), dtype=torch.bool, device=dev)
+    w_ms = _f32(np.float32(modes.WRITE_LATENCY_US[modes.QLC]) * np.float32(_MS))
+    written = ("l2p", "p2l", "page_write_ms", "block_mode", "block_state", "block_next",
+               "block_valid", "open_user", "die_busy_ms", "free_count", "n_writes")
+    s = s._replace(**{k: getattr(s, k).clone() for k in written})  # updated in place below
+    active = (is_write & (lpns >= 0)).tolist()
+    for lpn, act in zip(torch.clamp(lpns, min=0).tolist(), active):
+        if not act:
+            continue
+        lun = lpn % cfg.n_luns
+        d = int(s.open_user[lun])
+        need_new = d < 0 or int(s.block_next[d]) >= ppb_q
+        d2 = int(ftl.alloc_free_block(s, prefer_lun=lun, cfg=cfg)) if need_new else d
+        if d2 < 0:  # no block to write into: the write is lost, the die's cursor closed
+            s.open_user[lun] = -1
+            continue
+        if need_new:  # open a fresh block in QLC mode
+            s.block_mode[d2] = modes.QLC
+            s.block_state[d2] = st.OPEN
+            s.free_count.sub_(1)
+        old = int(s.l2p[lpn])
+        if old >= 0:  # invalidate the previous mapping
+            s.p2l[old] = -1
+            s.block_valid[old // spb] -= 1
+        slot = d2 * spb + int(s.block_next[d2])
+        full = int(s.block_next[d2]) + 1 >= ppb_q
+        s.l2p[lpn] = slot
+        s.p2l[slot] = lpn
+        s.page_write_ms[slot] = s.clock_ms
+        s.block_next[d2] += 1
+        s.block_valid[d2] += 1
+        if full:
+            s.block_state[d2] = st.FULL
+        s.open_user[lun] = -1 if full else d2
+        s.die_busy_ms[lun] += w_ms
+        s.n_writes.add_(1.0)
+        s = s._replace(w_lat_hist=telemetry.record(s.w_lat_hist, w_lat_us, one))
+    return s
 
 
 def write_path_batched(s: st.SSDState, lpns, is_write, cfg: geometry.SimConfig,
@@ -369,7 +435,11 @@ def step_chunk(s: st.SSDState, req, cfg: geometry.SimConfig, has_writes: bool,
         torch.zeros((telemetry.N_LAT_BINS,), dtype=torch.float32, device=dev), lat_rec, rd)
 
     die_add = ops.segment_sum(svc_us, die, cfg.n_dies) * _MS
-    chan_add = ops.segment_sum(xfer_us, chan, cfg.n_channels) * _MS
+    # every read's transfer is the same constant, so a channel's sum is its
+    # read count's worth of it, added one lane at a time in float32 as the
+    # reference's segment sum adds them
+    n_xfer = ops.segment_sum(rd.to(torch.int32), chan, cfg.n_channels)
+    chan_add = _repeated_sums(xfer, lpns.shape[0], dev)[n_xfer.long()] * _MS
     chunk_reads = rd.sum().float()
     chunk_retries = torch.where(rd, retries, 0).sum().float()
 
@@ -546,14 +616,23 @@ def run(cfg: geometry.SimConfig, trace, has_writes: bool | None = None, *, devic
     device = resolve_device(device)
     if has_writes is None:
         has_writes = bool((np.asarray(trace["op"]) == OP_WRITE).any())
-    keys = [k for k in ("lpn", "op", "arrival_ms") if k in trace]
-    xs = [torch.from_numpy(np.ascontiguousarray(trace[k])).to(device) for k in keys]
     s = st.init_state(cfg, device=device)
     ys = []
-    for c in range(xs[0].shape[0]):
-        s, y = step_chunk(s, tuple(x[c] for x in xs), cfg, has_writes)
+    for req in trace_chunks(trace, device):
+        s, y = step_chunk(s, req, cfg, has_writes)
         ys.append(y)
     return s, ChunkMetrics(*[torch.stack(f) for f in zip(*ys)])
+
+
+def trace_chunks(trace, device) -> list[tuple[torch.Tensor, ...]]:
+    """A packed trace as per-chunk requests on ``device``: ``(lpn, op)``
+    closed loop, ``(lpn, op, arrival_ms)`` open loop, as int32, int32 and
+    float32 (the dtypes the reference's ``jnp.asarray`` gives them), one
+    copy to the device per array."""
+    dtypes = {"lpn": np.int32, "op": np.int32, "arrival_ms": np.float32}
+    xs = [torch.from_numpy(np.ascontiguousarray(trace[k], dt)).to(device)
+          for k, dt in dtypes.items() if k in trace]
+    return list(zip(*xs))
 
 
 def summarize(s: st.SSDState, cfg: geometry.SimConfig, threads: int = 4):

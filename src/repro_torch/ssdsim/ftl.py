@@ -13,8 +13,10 @@ Every gate the reference takes with ``lax.cond`` (``maybe_migrate_pages``,
 comes back unchanged, as the reference's no-op branch gives it. The
 allocator's hint-or-scan choice is a ``torch.where`` between both (the
 scan is cheap), so it makes the host wait for nothing. The sequential
-reference paths (``_migrate_block_reference``, ``gc_pass_reference``) are
-test oracles of the reference and are not ported.
+paths (``_erase``, ``_migrate_block_reference``, ``gc_pass_reference``,
+``gc_step_reference``) are test oracles, as in the reference: one block at a
+time on host ints, held against the fused kernel by the tests; nothing on
+the main path calls them.
 
 Scatter discipline, as in the reference: masked-out lanes go to an
 out-of-range index and are dropped (``repro_torch.ops``).
@@ -205,6 +207,30 @@ def _erase_many(s: st.SSDState, victims, grp, cfg: geometry.SimConfig,
     return s
 
 
+def _erase(s: st.SSDState, blk, cfg: geometry.SimConfig):
+    """Erase block ``blk`` (an int or a 0-dim tensor): invalidate its slots,
+    bump its P/E, return it to the free pool and make it its die's hint.
+    A test oracle (the sequential half of ``_migrate_block_reference``);
+    relocation erases through :func:`_erase_many`."""
+    spb = cfg.slots_per_block
+    blk = int(blk)
+    die = cfg.die_of_block(blk)
+    erase_us = modes.table(modes.ERASE_LATENCY_US, s.block_mode.device)[int(s.block_mode[blk])]
+    s = s._replace(**{k: getattr(s, k).clone() for k in (
+        "p2l", "block_pe", "block_reads", "block_state", "block_next", "block_valid",
+        "block_cold_age", "free_hint", "die_busy_ms")})
+    s.p2l[blk * spb:(blk + 1) * spb] = -1
+    s.block_pe[blk] += 1
+    s.block_reads[blk] = 0
+    s.block_state[blk] = st.FREE
+    s.block_next[blk] = 0
+    s.block_valid[blk] = 0
+    s.block_cold_age[blk] = 0
+    s.free_hint[die] = blk
+    s.die_busy_ms[die] += erase_us * _MS
+    return s._replace(free_count=s.free_count + 1, n_erases=s.n_erases + 1.0)
+
+
 def _place_pages(s: st.SSDState, lpns, valid, tgt_mode, cfg: geometry.SimConfig,
                  n_dest: int):
     """Append the ``valid``-masked ``lpns`` into open migration block(s) of
@@ -305,6 +331,37 @@ def migrate_block(s: st.SSDState, src, tgt_mode, cfg: geometry.SimConfig,
     victims = ops.scalar(src, torch.int32, s.block_mode.device).reshape(1)
     return relocate_group(s, victims, torch.ones((1,), dtype=torch.bool, device=victims.device),
                           tgt_mode, cfg, MAX_DEST, reason=obs.REASON_CONV_BLOCK, faults=faults)
+
+
+def _migrate_block_reference(s: st.SSDState, src, tgt_mode, cfg: geometry.SimConfig):
+    """Sequential block migration: every valid page of block ``src`` (an
+    int or a 0-dim tensor) read at its Eq.-3 cost, placed into ``tgt_mode``
+    through :func:`_place_pages`, then :func:`_erase`. A test oracle for the
+    fused :func:`relocate_group` (``gc_pass_reference`` routes through it)."""
+    spb = cfg.slots_per_block
+    dev = s.block_mode.device
+    src = int(src)
+    src_mode = s.block_mode[src]
+    slots = src * spb + torch.arange(spb, dtype=torch.int32, device=dev)
+    lpns = s.p2l[src * spb:(src + 1) * spb]
+    valid = lpns >= 0
+
+    # -- read cost of the source pages (Eq. 1 -> Eq. 3 per page) --
+    age_h = page_age_h(s, cfg, s.page_write_ms[src * spb:(src + 1) * spb])
+    retries = retry.page_retries(src_mode, s.block_pe[src], age_h, s.block_reads[src], slots)
+    read_ms = torch.where(valid, retry.read_latency_us(src_mode, retries), 0.0).sum() * _MS
+    die_busy_ms = s.die_busy_ms.clone()
+    die_busy_ms[cfg.die_of_block(src)] += read_ms
+    s = s._replace(die_busy_ms=die_busy_ms)
+
+    # source slots die with the erase below; no explicit invalidation needed
+    s = _place_pages(s, lpns, valid, tgt_mode, cfg, MAX_DEST)
+
+    n_conversions = s.n_conversions.clone()
+    n_conversions[int(src_mode), int(tgt_mode)] += 1.0
+    s = s._replace(n_migrated_pages=s.n_migrated_pages + valid.sum().float(),
+                   n_conversions=n_conversions)
+    return _erase(s, src, cfg)
 
 
 def _dest_unroll(cfg: geometry.SimConfig, n_pages: int) -> int:
@@ -528,4 +585,28 @@ def _gc_pass(s: st.SSDState, cfg: geometry.SimConfig,
     if bool(go):
         return relocate_group(s, victims, grp, tgt, cfg, k + 1,
                               reason=obs.REASON_GC, faults=faults)
+    return s
+
+
+def gc_step_reference(s: st.SSDState, cfg: geometry.SimConfig):
+    """:func:`gc_pass_reference` when the free pool is below
+    ``cfg.gc_free_threshold`` (as :func:`gc_step` gates); a test oracle."""
+    if int(free_block_count(s)) < cfg.gc_free_threshold:
+        return gc_pass_reference(s, cfg)
+    return s
+
+
+def gc_pass_reference(s: st.SSDState, cfg: geometry.SimConfig):
+    """The scalar single-victim GC pass: the reclaimable FULL block with the
+    fewest valid pages (the lowest id among equals), migrated in its own
+    mode by :func:`_migrate_block_reference` when the pool has room. A test
+    oracle: the fused :func:`_gc_pass` with ``gc_victims_per_pass=1`` must
+    equal it."""
+    ppb = geometry.pages_per_block(cfg, s.block_mode.device)
+    full = s.block_state == st.FULL
+    reclaimable = full & (s.block_valid < ppb[s.block_mode.long()])
+    score = torch.where(reclaimable, s.block_valid, torch.iinfo(torch.int32).max)
+    victim = int(torch.argmin(score))  # the first minimum, as jnp.argmin
+    if bool(reclaimable[victim]) and int(free_block_count(s)) >= MAX_DEST + 2:
+        return _migrate_block_reference(s, victim, int(s.block_mode[victim]), cfg)
     return s
