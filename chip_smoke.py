@@ -34,7 +34,20 @@ Phases, one JSON line each:
   8. profile  torch.profiler over a few full-width RARO steps, and over one
               full-width prefill: the device's busy share and the kernels and host
               ops that take the time
-  9. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
+  9. train    training tinyllama-1.1b (launch.train, training.train_step, AdamW,
+              checkpoints): (a) one make_train_step step of a 2-layer model at
+              full widths in f32 on the card against the CPU, the same numpy-made
+              parameters and batch (loss, grad norm, every updated parameter and
+              moment); (b) the flash kernel's autograd entry (kernel forward,
+              plain-attention backward) against the plain attention's autograd at
+              the training shape in f32 and bf16, the kernel's refusal of inputs
+              that require grad, and the forward's and backward's times; (c) the
+              main path, launch.train.run at full width and depth (bf16, remat,
+              batch 4 x 2048 tokens, 8 steps): loss and grad norm per step, ms per
+              step, tokens/s, peak memory, exactly 44 flash launches a step, and
+              a profiled step; (d) a 2-layer run resumed from its step-3
+              checkpoint, its losses equal to an uninterrupted run's bit for bit
+ 10. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
               engine.summarize) on the card at the paper's Table III geometry:
               quickstart's three policies on 100,000 zipf-1.2 reads (closed loop),
               RARO under the lattice timing model at obs_level "full" on the same
@@ -47,7 +60,7 @@ Phases, one JSON line each:
               by chunk against the port on the CPU (the first 16 chunks; the fault
               storm whole) by tests/torch_ssd_compare.py's rule. No kernel: the
               simulator's hot operations are plain PyTorch ops on the card
- 10. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
+ 11. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
               (a) configs/raro_ssd.py's tail_latency_sweep() whole (Table III
               geometry, read_disturb_hammer, 80,000 requests, Baseline and RARO
               x P/E 166 and 833 x seeds 0 and 1): each run's headline numbers,
@@ -98,10 +111,13 @@ from repro_torch.kernels.quant_page.quant_page import quantize_pages  # noqa: E4
 from repro_torch.kernels.quant_page.ref import quant_pages_ref  # noqa: E402
 from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E402
     tiered_decode_partial, tiered_decode_partial_plain)
+from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kvcache import paged, tiers  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import base, registry, transformer  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.models import attention as attn, base, registry, transformer  # noqa: E402
 from repro_torch.serving import serve_step  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.training import optim, train_step  # noqa: E402
 from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
 from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
 from repro_torch.ssdsim import obs as ssd_obs  # noqa: E402
@@ -309,6 +325,7 @@ def bound_ms(bytes_, flops, rate=F32_FLOP_PER_S):
 # phases
 # --------------------------------------------------------------------------
 def phase_device():
+    """The card, and nvidia-smi's "name, power limit" of it, which is returned."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this script needs a card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -318,6 +335,7 @@ def phase_device():
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return smi
 
 
 def phase_build():
@@ -1015,6 +1033,301 @@ def phase_times(dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+TRAIN_STEPS = 8  # full-width steps of the train phase's main run
+TRAIN_BATCH, TRAIN_SEQ = 4, PROMPT  # 8,192 tokens a step
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"  # git-ignored: (d)'s checkpoints
+# (a): one step of a 2-layer model at tinyllama's widths in f32, card against CPU
+TRAIN_CMP = dict(n_layers=2, batch=2, seq=256, lr=1e-3)
+# Tolerances of (a). The card's attention is the flash kernel (3xTF32, within
+# 1e-5 of the plain f32 attention) and its products cuBLAS's f32 GEMMs; the
+# CPU's are the plain blockwise attention and the CPU's GEMMs: one function,
+# summed in other orders. Loss and grad norm: rtol 1e-5. Moments, per leaf:
+# atol 1e-4 of the leaf's largest |entry| plus rtol 1e-4. Parameters: AdamW's
+# first step from zero moments moves an entry by lr * r(x) + lr * wd * p, where
+# x = g * clip = m / (1 - b1) and r(x) = x / (|x| + eps): a function of each
+# side's own m, whose slope eps / (|x| + eps)^2 is steep where the gradient
+# cancels to ~eps (tests/test_torch_train.py measured steps 4% of lr apart
+# there between the port and the JAX package). So each entry may differ by
+# what the two sides' first moments imply, lr * |r(x_card) - r(x_cpu)|, plus
+# 1e-2 lr for the update's own roundings; the moments are held above.
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, moments=1e-4, params_of_lr=1e-2)
+FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel")
+
+
+def numpy_params(cfg, seed):
+    """Parameters of ``cfg`` drawn by numpy in f32, by the specs' initializers
+    (as ``base.materialize`` scales them)."""
+    rng = np.random.default_rng(seed)
+
+    def init(spec):
+        if spec.init in ("zeros", "ones"):
+            return torch.full(spec.shape, float(spec.init == "ones"))
+        scale = 1.0
+        if spec.init == "scaled" and len(spec.shape) >= 2:
+            scale = 1.0 / math.sqrt(spec.shape[-2])
+        elif spec.init == "normal":
+            scale = 0.02
+        return torch.from_numpy(rng.standard_normal(spec.shape, dtype=np.float32)
+                                * np.float32(scale))
+
+    return base.tree_map(init, registry.get_api(cfg).specs())
+
+
+def step1_param_gap(m_card, m_cpu, ocfg):
+    """Per entry: how far AdamW's first step moves a parameter apart on two
+    sides with these first moments (m = (1 - b1) x, x the clipped gradient):
+    lr * |r(x_card) - r(x_cpu)|, r(x) = x / (|x| + eps)."""
+    def r(m):
+        x = m.double() / (1 - ocfg.b1)
+        return x / (x.abs() + ocfg.eps)
+
+    return ocfg.lr * (r(m_card) - r(m_cpu)).abs()
+
+
+def train_card_vs_cpu(dev, cfg, smi):
+    """(a) One make_train_step step of a 2-layer model at ``cfg``'s widths in
+    f32 (f32 parameters and dtype; TF32 off, as phase_device sets it), the same
+    numpy-made parameters and batch on the card and on the CPU: loss, grad
+    norm, and every updated moment and parameter (TRAIN_TOL). The errors are
+    printed before they are checked."""
+    c = cfg.with_(n_layers=TRAIN_CMP["n_layers"], dtype=torch.float32)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    ocfg = optim.AdamWConfig(lr=TRAIN_CMP["lr"], warmup=1, total_steps=10)
+    p_cpu = numpy_params(c, 7)
+    p_dev = base.tree_map(lambda t: t.to(dev, copy=True), p_cpu)  # the step works in place
+    data = SyntheticLM(DataConfig(vocab=c.vocab, seq_len=TRAIN_CMP["seq"],
+                                  global_batch=TRAIN_CMP["batch"], seed=1))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+    step = train_step.make_train_step(c, ocfg)
+    reset_counts()
+    p_dev, s_dev, m_dev = step(p_dev, optim.init(p_dev), {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    n = counts()
+    p_cpu, s_cpu, m_cpu = step(p_cpu, optim.init(p_cpu), batch)
+    errs, fails = {}, []
+    for key in ("loss", "grad_norm"):
+        a, r = float(m_dev[key]), float(m_cpu[key])
+        errs[key] = abs(a - r) / abs(r) if math.isfinite(a) else math.inf
+        if not errs[key] <= TRAIN_TOL[key]:
+            fails.append(f"{key}: card {a}, CPU {r}")
+    worst = dict.fromkeys(("m", "v", "params"), 0.0)
+    used = dict.fromkeys(worst, 0.0)  # the largest share of its tolerance an entry takes
+    wide = 0  # parameter entries the moments move apart by over lr / 10 (r is steep there)
+    unexplained = 0.0  # the most a parameter differs beyond what its moments imply, over lr
+    leaves = zip(*(base.tree_leaves(t) for t in (s_dev.m, s_cpu.m, s_dev.v, s_cpu.v, p_dev, p_cpu)))
+    for md, mc, vd, vc, pd, pc in leaves:
+        for name, a, r in (("m", md, mc), ("v", vd, vc), ("params", pd, pc)):
+            d = (a.cpu().double() - r.double()).abs()
+            if name == "params":
+                gap = step1_param_gap(md.cpu(), mc, ocfg)
+                tol = gap + TRAIN_TOL["params_of_lr"] * ocfg.lr
+                wide += int((gap > 0.1 * ocfg.lr).sum())
+                worst[name] = max(worst[name], float(d.max()) / ocfg.lr)
+                unexplained = max(unexplained, float((d - gap).max()) / ocfg.lr)
+            else:
+                big = float(r.abs().max())
+                tol = TRAIN_TOL["moments"] * (big + r.double().abs())
+                worst[name] = max(worst[name], float(d.max()) / max(big, 1e-30))
+            share = float((d / tol.clamp(min=1e-300)).max())
+            used[name] = max(used[name], share)
+            if share > 1:
+                fails.append(f"{name}: {int((d > tol).sum())} entries outside the tolerance")
+    errs.update(m_max_err_of_leaf_max=worst["m"], v_max_err_of_leaf_max=worst["v"],
+                params_max_abs_err_over_lr=worst["params"], tolerance_used=used,
+                params_moved_apart_over_lr_tenth=wide,
+                params_max_err_beyond_moments_over_lr=unexplained)
+    emit("train", part="a_card_vs_cpu", nvidia_smi=smi, arch=cfg.arch, n_layers=c.n_layers,
+         d_model=c.d_model, dtype="float32", tf32=False, batch=TRAIN_CMP["batch"],
+         seq=TRAIN_CMP["seq"], lr=ocfg.lr, loss=float(m_cpu["loss"]),
+         grad_norm=float(m_cpu["grad_norm"]), tol=TRAIN_TOL, errors=errs, launches=n)
+    check(n["flash_attention_fwd"] == 2 * c.n_layers,  # the forward, and remat's recompute
+          f"flash launches {n}, want {2 * c.n_layers}")
+    check(not fails, f"card against CPU: {fails}")
+
+
+def train_attention_check(dev, smi):
+    """(b) The autograd entry (the flash kernel forward, the plain attention's
+    VJP backward) against the plain blockwise attention's own autograd at the
+    training shape, in f32 and bf16: output and dq, dk, dv within FLASH_TOL.
+    flash_attention_fwd must refuse inputs that require grad. Then, in bf16,
+    the times of the forward kernel, the entry's backward, the plain version
+    and PyTorch's fused attention, forward and backward."""
+    rng = np.random.default_rng(6)
+    b, sq, sk, h, hk, d, causal = FLASH_FULL
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
+        do = torch.tensor(rng.standard_normal(q.shape).astype(np.float32)).to(dt).to(dev)
+        res = []
+        for f in (lambda *a: flash_attention_train(*a, causal=causal),
+                  lambda *a: attn.blockwise_attention(*a, causal=causal)):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = f(*leaves)
+            res.append([o.detach(), *torch.autograd.grad(o, leaves, do)])
+            del o, leaves
+        errs = {}
+        for name, a, r in zip(("o", "dq", "dk", "dv"), *res):
+            check(a.dtype == r.dtype == dt and a.shape == r.shape, f"{name}: {a.dtype} {a.shape}")
+            torch.testing.assert_close(a.float(), r.float(), atol=FLASH_TOL[dt], rtol=FLASH_TOL[dt],
+                                       msg=lambda m: f"{dt} {name}: {m}")
+            errs[name] = float((a.float() - r.float()).abs().max())
+        del res
+        q.requires_grad_()
+        try:
+            flash_attention_fwd(q, k, v, causal=causal)
+            refused = False
+        except RuntimeError as e:
+            refused = "flash_attention_train" in str(e)
+        q.requires_grad_(False)
+        check(refused, "flash_attention_fwd ran on inputs that require grad")
+        dname = str(dt).replace("torch.", "")
+        out[dname] = dict(max_abs_err=errs)
+        emit("train", part="b_autograd_entry", nvidia_smi=smi,
+             b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype=dname, tol=FLASH_TOL[dt],
+             max_abs_err=errs, fwd_refuses_grad=refused)
+    # times at the training shape in bf16 (q, k, v, do of the last pass)
+    ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
+    plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
+                             n_iter=5, warmup=2)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = flash_attention_train(*leaves, causal=causal)
+    bwd_ms, _ = time_launches(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
+                              n_iter=5, warmup=1)
+    del o, leaves
+    # the yardstick, never called by the port: PyTorch's fused attention, (B, H, S, D)
+    lleaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(*lleaves, is_causal=causal,
+                                                                enable_gqa=True)
+
+    with torch.no_grad():
+        lib_ms, _ = time_launches(library, n_iter=20)
+    ol, dol = library(), do.transpose(1, 2).contiguous()
+    lib_bwd_ms, _ = time_launches(lambda: torch.autograd.grad(ol, lleaves, dol, retain_graph=True),
+                                  n_iter=10, warmup=2)
+    del ol, lleaves
+    bytes_, flops = flash_cost(q, k, causal)
+    rate, rate_name = FLASH_RATE[q.dtype]
+    bnd, by = bound_ms(bytes_, flops, rate)
+    # the backward: q, k, v, do read once and dq, dk, dv written once; five
+    # products per kept (query, key) pair (the scores again, dP, dV, dQ, dK)
+    bwd_bnd, bwd_by = bound_ms(bytes_ * 7 // 4, flops * 5 // 2, rate)
+    out["times"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+                        backward_ms=bwd_ms, backward_bound_ms=bwd_bnd, backward_bound_by=bwd_by,
+                        library_backward_ms=lib_bwd_ms)
+    emit("train", part="b_times", nvidia_smi=smi, kernel="flash_attention_fwd",
+         b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype="bfloat16", host_ms=host_ms,
+         bound_rate=rate_name, library="torch.nn.functional.scaled_dot_product_attention",
+         **out["times"])
+    return out
+
+
+def train_run(dev, cfg, smi):
+    """(c) The main path: launch.train.run at full width and depth. Each step
+    is timed between two synchronizes and its flash launches counted; the
+    counts are set to 0 just before the run and read just after it."""
+    records = []
+    make = train_step.make_train_step
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(params, opt_state, batch):
+            torch.cuda.synchronize()
+            n0, t0 = flash_attention_fwd.launches, time.perf_counter()
+            params, opt_state, metrics = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+            records.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                flash_launches=flash_attention_fwd.launches - n0,
+                                loss=float(metrics["loss"]),
+                                grad_norm=float(metrics["grad_norm"])))
+            return params, opt_state, metrics
+
+        return timed
+
+    train_step.make_train_step = recording
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        params, hist = train.run(cfg.arch, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ, log_every=1, device=dev)
+        torch.cuda.synchronize()
+        n = counts()
+    finally:
+        train_step.make_train_step = make
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.n_layers  # the forward, and remat's recompute in the backward
+    check(len(records) == TRAIN_STEPS and [l for _, l in hist] == [r["loss"] for r in records],
+          f"{len(records)} steps recorded, hist {hist}")
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records),
+          f"non-finite loss or grad norm: {records}")
+    check(all(r["flash_launches"] == per_step for r in records)
+          and n == {"flash_attention_fwd": per_step * TRAIN_STEPS, "tiered_decode_partial": 0,
+                    "quantize_pages": 0},
+          f"flash launches per step {[r['flash_launches'] for r in records]}, total {n}")
+    check(all(t.dtype == torch.bfloat16 for t in base.tree_leaves(params)), "params not bf16")
+    for i, r in enumerate(records):
+        emit("train", part="c_step", nvidia_smi=smi, step=i, **r)
+    ms = sum(r["ms"] for r in records[1:]) / (len(records) - 1)
+    summary = dict(arch=cfg.arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   params=base.n_params(registry.get_api(cfg).specs()), dtype="bfloat16",
+                   remat=cfg.remat, xent_chunk=cfg.xent_chunk, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   steps=TRAIN_STEPS, first_step_ms=records[0]["ms"], ms_per_step_after_first=ms,
+                   tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
+                   max_memory_allocated=peak, launches=n, flash_launches_per_step=per_step)
+
+    # where one step's device time goes, after the run, from its final parameters
+    ocfg = optim.AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
+    step = make(cfg, ocfg)
+    opt = optim.init(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(0).items()}
+    step(params, opt, b)
+    torch.cuda.synchronize()
+    wall_ms, device_ms, cpu_ms = profiled(lambda: step(params, opt, b))
+    busy = sum(device_ms.values())
+    flash_ms = sum(v for k, v in device_ms.items() if any(f in k for f in FLASH_KERNEL_NAMES))
+    summary.update(profiled_wall_ms=wall_ms, device_busy_ms=busy or None,
+                   device_busy_share=busy / wall_ms if busy else None,
+                   flash_kernel_ms=flash_ms if busy else None,
+                   flash_share_of_busy=flash_ms / busy if busy else None,
+                   top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
+    emit("train", part="c_full_width", nvidia_smi=smi, **summary)
+    return n
+
+
+def train_resume(dev, cfg, smi):
+    """(d) A 2-layer run of 6 steps, and the same run cut at step 3 and
+    resumed from its checkpoint: the losses must be equal bit for bit."""
+    kw = dict(smoke=False, batch=2, seq=256, log_every=1, device=dev,
+              cfg=cfg.with_(n_layers=2))
+    _, straight = train.run(cfg.arch, steps=6, **kw)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    try:
+        _, first = train.run(cfg.arch, steps=3, ckpt_dir=str(TRAIN_DIR), **kw)
+        _, second = train.run(cfg.arch, steps=6, ckpt_dir=str(TRAIN_DIR), **kw)
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    check(second[0][0] == 3, f"the second run started at step {second[0][0]}, not 3")
+    check(first + second == straight, f"resumed {first + second} != straight {straight}")
+    emit("train", part="d_resume", nvidia_smi=smi, n_layers=2, dtype="bfloat16", batch=2,
+         seq=256, losses=[l for _, l in straight], resumed_at=3, bit_equal=True)
+
+
+def phase_train(dev, cfg, smi):
+    """Training on the card (see the module docstring, phase 9). Returns the
+    main run's launch counts and the flash kernel's training-shape numbers."""
+    train_card_vs_cpu(dev, cfg, smi)
+    attention = train_attention_check(dev, smi)
+    launches = train_run(dev, cfg, smi)
+    train_resume(dev, cfg, smi)
+    return launches, attention
+
+
 SSD_REQUESTS = 100_000  # quickstart's default
 SSD_CMP_CHUNKS = 16  # chunks of (a)-RARO and (b) held against the CPU
 SSD_SYNC_CHUNKS = 8  # chunks whose host syncs are counted
@@ -1096,7 +1409,7 @@ def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
 
 
 def phase_ssd(dev):
-    """Layer A on the card (see the module docstring, phase 9). Returns the
+    """Layer A on the card (see the module docstring, phase 10). Returns the
     summaries, and the open-loop run's (config, final state) by name."""
     out, states = {}, {}
     for name, cfg, trace, cmp_chunks in ssd_runs():
@@ -1251,7 +1564,7 @@ def chrome_trace_schema(doc, cfg, s):
 
 
 def phase_sweep(dev, b_cfg, b_state):
-    """The experiment sweep on the card (see the module docstring, phase 10).
+    """The experiment sweep on the card (see the module docstring, phase 11).
     ``b_cfg`` and ``b_state`` are the ssd phase's open-loop run, for (d)."""
     G = ssd_geometry
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)  # a fresh grid: no checkpoint of an earlier run
@@ -1374,10 +1687,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile, ssd or sweep phase)")
+                         "(no path, serve, prefill, times, profile, train, ssd or sweep phase)")
     a = ap.parse_args()
 
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
     errs = {"tiered_decode_partial": check_partial(dev, a.quick),
@@ -1391,18 +1704,26 @@ def main():
         phase_syncs(dev, cfg)
         runs = phase_serve(dev, cfg, STEPS, 4)
         launches = {k: runs[True][k] for k in ("tiered_decode_partial", "quantize_pages")}
-        launches["flash_attention_fwd"] = phase_prefill(dev, cfg)["flash_attention_fwd"]
+        prefill_launches = phase_prefill(dev, cfg)["flash_attention_fwd"]
         times = phase_times(dev)  # before the profiler, whose cost outlasts its window
         phase_profile(dev, cfg)
         phase_profile_prefill(dev, cfg)
+        train_launches, train_attention = phase_train(dev, cfg, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
+        # flash attention's main paths: the prefill (f32) and training (bf16)
+        by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"]}
+        launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
+        extra = {"flash_attention_fwd": dict(
+            launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
+                dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}))}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],
-                 bound_by=times[k]["bound_by"], library_ms=times[k].get("library_ms"))
+                 bound_by=times[k]["bound_by"], library_ms=times[k].get("library_ms"),
+                 **extra.get(k, {}))
             for k in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

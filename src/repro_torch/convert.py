@@ -1,7 +1,11 @@
-"""Carry the JAX package's parameters and cache state into the port.
+"""Carry state between the JAX package and the port.
 
-Both functions take numpy arrays (the caller does the ``np.asarray`` on the
-JAX side), so this module needs no JAX.
+The ``*_from_numpy`` functions take numpy arrays (the caller does the
+``np.asarray`` on the JAX side) and the ``*_to_numpy`` functions give them,
+so this module needs no JAX. The two packages lay out a model's layers
+differently: the reference stacks every ``layers`` leaf on a leading
+(n_layers,) axis, the port keeps a list of per-layer dicts;
+``stack_layers`` and ``unstack_layers`` turn one into the other.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kvcache.paged import TieredKV
+from repro_torch.models import base
+from repro_torch.training.optim import OptState
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -33,21 +39,79 @@ def _tree(x, device):
 def params_from_numpy(tree, cfg, device=None):
     """The reference's parameter tree ({"embed", "layers", "ln_f"}, with every
     ``layers`` leaf stacked on a leading (n_layers,) axis) -> the port's tree,
-    whose ``layers`` is a list of per-layer dicts. Weight orientation is the
-    same in both (``x @ W``), so nothing is transposed."""
-    device = resolve_device(device)
-    out = {k: _tree(v, device) for k, v in tree.items() if k != "layers"}
+    whose ``layers`` is a list of per-layer dicts (views of one stacked
+    tensor per leaf). Weight orientation is the same in both (``x @ W``), so
+    nothing is transposed."""
+    return unstack_layers(_tree(dict(tree), resolve_device(device)), cfg.n_layers)
 
-    def layer(sub, i):
-        if isinstance(sub, dict):
-            return {k: layer(v, i) for k, v in sub.items()}
-        if np.shape(sub)[0] != cfg.n_layers:
-            raise ValueError(f"stacked layer leaf has leading dim {np.shape(sub)[0]}, "
-                             f"expected n_layers={cfg.n_layers}")
-        return tensor_from_numpy(np.asarray(sub)[i], device)
 
-    out["layers"] = [layer(tree["layers"], i) for i in range(cfg.n_layers)]
-    return out
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host. bfloat16 comes back as float32
+    holding the same values (numpy has no bfloat16 of its own); casting it
+    to the reference's bfloat16 is exact."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _stack(layers):
+    if isinstance(layers[0], dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def _unstack(sub, n):
+    if isinstance(sub, dict):
+        return [dict(zip(sub, vals)) for vals in zip(*(_unstack(v, n) for v in sub.values()))]
+    if sub.shape[0] != n:
+        raise ValueError(f"stacked layer leaf has leading dim {sub.shape[0]}, expected {n}")
+    return list(sub.unbind(0))
+
+
+def stack_layers(tree):
+    """The port's layout -> the reference's: in every dict of ``tree`` (a
+    parameter tree, an ``OptState``, or tuples of them), a ``layers`` list of
+    per-layer dicts becomes one dict of tensors stacked on a leading axis."""
+    if isinstance(tree, dict):
+        return {k: _stack(v) if k == "layers" and isinstance(v, list) else stack_layers(v)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = (stack_layers(v) for v in tree)
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return tree
+
+
+def unstack_layers(tree, n_layers: int):
+    """The inverse of ``stack_layers``: each stacked ``layers`` dict becomes
+    a list of ``n_layers`` per-layer dicts (views of the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _unstack(v, n_layers) if k == "layers" and isinstance(v, dict)
+                else unstack_layers(v, n_layers) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        out = (unstack_layers(v, n_layers) for v in tree)
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return tree
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse of ``params_from_numpy``: the port's parameter tree as the
+    reference's, every ``layers`` leaf stacked on a leading (n_layers,) axis,
+    with numpy leaves (bfloat16 as float32, see ``tensor_to_numpy``)."""
+    return base.tree_map(tensor_to_numpy, stack_layers(params))
+
+
+def opt_state_to_numpy(state: OptState) -> OptState:
+    """The port's AdamW state in the reference's layout with numpy leaves;
+    ``repro.training.optim.OptState(*out)`` takes its fields in order."""
+    return OptState(params_to_numpy(state.m), params_to_numpy(state.v),
+                    tensor_to_numpy(state.count))
+
+
+def opt_state_from_numpy(state, cfg, device=None) -> OptState:
+    """The reference's AdamW state (its ``OptState`` or an (m, v, count)
+    tuple) with numpy leaves -> the port's, on ``device``."""
+    m, v, count = state
+    return OptState(params_from_numpy(m, cfg, device), params_from_numpy(v, cfg, device),
+                    tensor_from_numpy(np.asarray(count, np.int32), resolve_device(device)))
 
 
 def cache_from_numpy(cache, device=None) -> dict:

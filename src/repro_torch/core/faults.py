@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import ops
+from repro_torch import ops, resolve_device
 from repro_torch.core import modes
 
 _U32 = 0xFFFFFFFF
@@ -66,15 +66,16 @@ def _static_params(cfg, device) -> FaultParams:
     )
 
 
-def params_for(cfg, knobs=None, device="cpu") -> FaultParams | None:
+def params_for(cfg, knobs=None, device=None) -> FaultParams | None:
     """Resolve ``SimConfig`` + optional ``RunKnobs`` into fault parameters on
-    ``device``, or ``None`` when fault injection is statically off (neither
-    the config nor the knobs carry fault fields), so no fault op runs. The
-    config's own bundle is made once per device."""
+    ``device`` (CUDA unless the caller names one), or ``None`` when fault
+    injection is statically off (neither the config nor the knobs carry
+    fault fields), so no fault op runs. The config's own bundle is made once
+    per device."""
     has_knob_faults = knobs is not None and knobs.prog_fail_rate is not None
     if not (cfg.faults_enabled or has_knob_faults):
         return None
-    device = torch.device(device)
+    device = resolve_device(device)
     if not has_knob_faults:
         return _static_params(cfg, device)
     i32, f32 = torch.int32, torch.float32

@@ -127,7 +127,17 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     ``block_q`` and ``block_k`` are the plain version's blocks, as they were
     the Pallas grid's, and change the result only by rounding.
     ``flash_attention_fwd.launches`` counts kernel launches.
+
+    The output is not tracked by autograd, so this raises where q, k or v
+    requires grad under grad mode; training takes
+    ``ops.flash_attention_train``, whose backward recomputes the plain
+    attention.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_fwd has no gradient: q, k or v requires grad. Use "
+            "repro_torch.kernels.flash_attention.ops.flash_attention_train (FlashAttentionFn), "
+            "or call it under torch.no_grad()")
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, sk_valid=sk_valid, causal=causal,
                                          block_q=block_q, block_k=block_k)

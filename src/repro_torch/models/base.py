@@ -27,12 +27,20 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
 
 
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
 def tree_map(f, tree):
-    """Apply ``f`` to every leaf of a tree of dicts and lists."""
+    """Apply ``f`` to every leaf of a tree of dicts, lists and tuples
+    (NamedTuples keep their type)."""
     if isinstance(tree, dict):
         return {k: tree_map(f, v) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_map(f, v) for v in tree]
+    if isinstance(tree, tuple):
+        out = (tree_map(f, v) for v in tree)
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return f(tree)
 
 
@@ -40,6 +48,12 @@ def tree_leaves(tree) -> list:
     out = []
     tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with its leaves replaced, in order, by ``leaves``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def materialize(specs, generator: torch.Generator, dtype=None, device=None):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.base import ParamSpec
 
@@ -121,3 +122,47 @@ def lm_logits(p, x, true_vocab: int):
         mask[true_vocab:] = -1e9
         logits = logits + mask
     return logits
+
+
+def _token_xent(logits, labels, ignore: int = -1):
+    """Per-token cross entropy in f32 and the mask of counted tokens."""
+    logits = logits.float()
+    mask = labels != ignore
+    lab = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    return (lse - ll) * mask, mask
+
+
+def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int):
+    """Sequence-chunked tied-embedding cross-entropy.
+
+    Live logits are capped at (B, chunk, V): each chunk's logits are dropped
+    after its forward and recomputed in the backward (``checkpoint``, where
+    the reference has ``jax.checkpoint`` over a ``lax.scan``). The chunks'
+    sums are added in order, as the scan's carry adds them.
+    """
+    b, s, d = x.shape
+    n = s // chunk
+    if n * chunk != s:
+        raise ValueError(f"sequence {s} is not a multiple of xent_chunk {chunk}")
+
+    def body(xc, lc):
+        loss, mask = _token_xent(lm_logits(embed_params, xc, true_vocab), lc)
+        return loss.sum(), mask.sum(dtype=torch.int32)
+
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        # no randomness inside, so no RNG state to keep for the recompute
+        l, c = checkpoint(body, x[:, sl], labels[:, sl], use_reentrant=False,
+                          preserve_rng_state=False)
+        loss, cnt = loss + l, cnt + c
+    return loss / torch.clamp(cnt, min=1)
+
+
+def softmax_xent(logits, labels, ignore: int = -1):
+    """Token-mean cross entropy in f32; ``ignore`` labels are masked."""
+    loss, mask = _token_xent(logits, labels, ignore)
+    return loss.sum() / torch.clamp(mask.sum(), min=1)

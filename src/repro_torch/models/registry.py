@@ -1,7 +1,7 @@
 """Model registry: family dispatch (counterpart of ``repro.models.registry``).
 
-Only the dense family is ported, for serving (prefill, decode and the cache
-specs); the other families and ``loss_fn`` are in ROADMAP.md, queue 1.
+Only the dense family is ported (training loss, prefill, decode and the cache
+specs); the other families are in ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ _FAMILIES = {"dense": transformer}
 class ModelAPI:
     cfg: ModelConfig
     specs: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
     init_cache_specs: Callable
@@ -32,6 +33,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         specs=lambda: mod.specs(cfg),
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
         prefill=lambda p, b: mod.prefill(p, b, cfg),
         decode_step=lambda p, c, t, pos: mod.decode_step(p, c, t, pos, cfg),
         init_cache_specs=lambda batch, seq: mod.init_cache_specs(cfg, batch, seq),

@@ -1,17 +1,21 @@
-"""Dense decoder-only transformer family (llama-arch), serving path.
+"""Dense decoder-only transformer family (llama-arch): training and serving.
 
 Counterpart of ``repro.models.transformer``: parameter specs, ``norm``,
-``qkv``, ``prefill`` (whose causal attention is the hand-written flash kernel
-on the card) and the single-token ``decode_step`` over a dense KV cache, f32
-or bf16 (``kv_bits`` 16) or int8 / packed int4 codes with per-token scales
-(``kv_bits`` 8 / 4, the RARO dense tier). Layers are a Python list of
-per-layer parameter dicts instead of a stacked axis scanned by ``lax.scan``;
-the KV cache keeps the reference's stacked (L, B, S, Hk, Dh) layout.
+``qkv``, the training ``forward`` and ``loss_fn`` (whose causal attention is
+the hand-written flash kernel inside an autograd function on the card),
+``prefill`` (the same kernel, forward only) and the single-token
+``decode_step`` over a dense KV cache, f32 or bf16 (``kv_bits`` 16) or int8 /
+packed int4 codes with per-token scales (``kv_bits`` 8 / 4, the RARO dense
+tier). Layers are a Python list of per-layer parameter dicts instead of a
+stacked axis scanned by ``lax.scan``; the KV cache keeps the reference's
+stacked (L, B, S, Hk, Dh) layout. ``family == "vlm"`` prepends precomputed
+image embeddings to the sequence, as the reference's internvl2 backbone does.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -61,6 +65,23 @@ def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
     return q, k, v
 
 
+def train_attention(q, k, v, cfg: ModelConfig):
+    """Causal self-attention of a training forward: on the card, with no
+    window, the flash kernel through its autograd entry (whose backward
+    recomputes the plain attention); else the plain blockwise attention, as
+    the reference computes it (the CPU, and sliding windows)."""
+    if cfg.window == 0 and q.device.type == "cuda":
+        return flash_ops.flash_attention_train(q, k, v, causal=True)
+    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.window)
+
+
+def attn_block(p, x, cfg: ModelConfig, positions):
+    b, s, _ = x.shape
+    q, k, v = qkv(p, x, cfg, positions)
+    o = train_attention(q, k, v, cfg)
+    return L.matmul(o.reshape(b, s, -1), p["wo"])
+
+
 def layer_specs(cfg: ModelConfig) -> dict:
     return {
         "ln1": norm_specs(cfg),
@@ -76,6 +97,45 @@ def specs(cfg: ModelConfig) -> dict:
         "layers": [layer_specs(cfg) for _ in range(cfg.n_layers)],
         "ln_f": norm_specs(cfg),
     }
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        x = torch.cat([batch["img_embeds"].to(cfg.dtype), x], dim=1)
+    return x
+
+
+def forward(params, batch, cfg: ModelConfig):
+    """Full-sequence forward -> final hidden states (B, S, D). With
+    ``cfg.remat`` each layer keeps only its input and recomputes the rest in
+    the backward (``checkpoint``, where the reference has ``jax.checkpoint``)."""
+    x = _embed_inputs(params, batch, cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+
+    def layer(x, lp):
+        h = x + attn_block(lp["attn"], norm(cfg, lp["ln1"], x), cfg, positions)
+        return h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
+
+    for lp in params["layers"]:
+        if cfg.remat:  # no randomness inside, so no RNG state to keep for the recompute
+            x = checkpoint(layer, x, lp, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = layer(x, lp)
+    return norm(cfg, params["ln_f"], x)
+
+
+def loss_fn(params, batch, cfg: ModelConfig):
+    """Token-mean next-token cross entropy of ``batch`` ({"tokens", "labels"}:
+    (B, S) int; for ``vlm``, "img_embeds": (B, N, D), whose positions carry no
+    label), through the tied embedding head."""
+    x = forward(params, batch, cfg)
+    labels = batch["labels"]
+    if cfg.family == "vlm" and "img_embeds" in batch:
+        x = x[:, batch["img_embeds"].shape[1]:]
+    if cfg.xent_chunk:
+        return L.tied_xent_chunked(params["embed"], x, labels, cfg.vocab, cfg.xent_chunk)
+    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab), labels)
 
 
 # ---------------------------------------------------------------------------
