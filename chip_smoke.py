@@ -9,7 +9,9 @@ Phases, one JSON line each:
   2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds,
               ptxas report, and flash attention's dynamic shared memory per head dim
   3. kernels  each kernel against its plain PyTorch version on the card, at the
-              serve and prefill paths' full-width shapes and at the CPU tests' shapes
+              serve and prefill paths' full-width shapes (flash attention also at
+              granite-moe-3b-a800m's, 24 heads over 8, f32 and bf16) and at the CPU
+              tests' shapes
               (quantize_pages by both entries: contiguous pages, and the store into
               the tier pools, every pool tensor exact)
   4. path     the tiered serve step on the card against the same step on the CPU,
@@ -28,7 +30,8 @@ Phases, one JSON line each:
               host's enqueue time, the least time the card could take (flash
               attention: on the 3xTF32 tensor cores, and on the CUDA cores beside
               it), a one-element op's time as the launch floor, and for flash
-              attention one PyTorch call that computes the same function; the
+              attention (tinyllama's shape in f32, granite's in bf16) one PyTorch
+              call that computes the same function; the
               store path's whole calls (the store with its pool copies, append,
               raro_step): device ms, host enqueue ms, and ms per call back to back
   8. profile  torch.profiler over a few full-width RARO steps, and over one
@@ -47,7 +50,22 @@ Phases, one JSON line each:
               step, tokens/s, peak memory, exactly 44 flash launches a step, and
               a profiled step; (d) a 2-layer run resumed from its step-3
               checkpoint, its losses equal to an uninterrupted run's bit for bit
- 10. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
+ 10. moe      the MoE family at granite-moe-3b-a800m's widths (32 layers, d_model
+              1536, 24 heads over 8 of 64, 40 experts top-8 of width 512; 3.30 B
+              parameters): (a) 2 layers in f32, make_prefill and 8 make_serve_step
+              steps on the card against the CPU from the same state each step
+              (logits and the prefill's cache within 1e-3, greedy tokens equal), and
+              one loss and gradient (loss and grad norm within 1e-5 relative), with
+              the smallest router top-k margin met; (b) the main serving path at full
+              depth in bf16: make_prefill over 4 x 2048 tokens, then 32
+              make_serve_step steps: prefill ms, decode tokens/s, peak memory, flash
+              launches (exactly 32 per prefill, 0 per decode step), host syncs of a
+              decode step; (c) the main training path, launch.train.run at full
+              width and depth (bf16, router f32, remat, batch 4 x 2048, 8 steps):
+              ms per step, tokens/s, peak memory, exactly 64 flash launches a step,
+              finite losses and grad norms, a profiled step; (d) a profiled decode
+              step: the top device ops and the device's busy share
+ 11. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
               engine.summarize) on the card at the paper's Table III geometry:
               quickstart's three policies on 100,000 zipf-1.2 reads (closed loop),
               RARO under the lattice timing model at obs_level "full" on the same
@@ -60,7 +78,7 @@ Phases, one JSON line each:
               by chunk against the port on the CPU (the first 16 chunks; the fault
               storm whole) by tests/torch_ssd_compare.py's rule. No kernel: the
               simulator's hot operations are plain PyTorch ops on the card
- 11. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
+ 12. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
               (a) configs/raro_ssd.py's tail_latency_sweep() whole (Table III
               geometry, read_disturb_hammer, 80,000 requests, Baseline and RARO
               x P/E 166 and 833 x seeds 0 and 1): each run's headline numbers,
@@ -98,7 +116,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import raro_ssd, tinyllama_1_1b  # noqa: E402
+from repro_torch import ops as port_ops  # noqa: E402
+from repro_torch.configs import granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b  # noqa: E402
 from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -114,7 +133,7 @@ from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E40
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import attention as attn, base, registry, transformer  # noqa: E402
+from repro_torch.models import attention as attn, base, moe, registry, transformer  # noqa: E402
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.training import optim, train_step  # noqa: E402
@@ -159,6 +178,9 @@ STORE_FULL = dict(b=4, p=8, hk=4, d=64, n=(8, 16, 256))
 PROMPT = 2048  # tinyllama-1.1b's published context
 # the prefill's attention at tinyllama-1.1b widths: (B, Sq, Sk, H, Hk, D, causal)
 FLASH_FULL = (4, PROMPT, PROMPT, 32, 4, 64, True)
+# granite-moe-3b-a800m's prefill and training attention: 24 query heads over 8
+# KV heads (a group of 3), bf16 as its serving and training paths run it
+FLASH_GRANITE = (4, PROMPT, PROMPT, 24, 8, 64, True)
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
 # not multiples of the kernel's 64-row tiles, with GQA and no causal mask
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
@@ -442,7 +464,8 @@ def check_flash(dev, full_only):
     so that both round p and each block's P.V at the same points), on both
     layouts it takes; a tail mask (sk_valid < Sk) on the reference's layout."""
     rng = np.random.default_rng(4)
-    cases = [("full", FLASH_FULL, torch.float32)]
+    cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
+             ("granite", FLASH_GRANITE, torch.bfloat16)]
     if not full_only:
         cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
                   for dt in (torch.float32, torch.bfloat16)]
@@ -450,7 +473,7 @@ def check_flash(dev, full_only):
     for label, (b, sq, sk, h, hk, d, causal), dt in cases:
         q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
         heads_first = [t.transpose(1, 2).reshape(-1, t.shape[1], d) for t in (q, k, v)]
-        sk_valid = sk - 5 if label != "full" else sk
+        sk_valid = sk - 5 if label.startswith("test") else sk
         outs = [flash_attention_fwd(q, k, v, causal=causal),
                 flash_attention_fwd(*heads_first, sk_valid=sk_valid, causal=causal)]
         torch.cuda.synchronize()
@@ -466,6 +489,8 @@ def check_flash(dev, full_only):
             errs[name] = float((o.float() - r.float()).abs().max())
         dname = str(dt).replace("torch.", "")
         worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+        if label == "granite":
+            worst[f"granite_{dname}"] = max(errs.values())
         emit("kernels", kernel="flash_attention_fwd", shape=label,
              b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], dtype=dname, sk_valid=sk_valid,
              tol=FLASH_TOL[dt], max_abs_err=errs)
@@ -597,18 +622,20 @@ def step_syncs(dev, cfg, raro, batch=4, at_step=7):
 
 
 class RecordLogits:
-    """Within the block, every ``transformer.prefill`` and ``decode_step`` call
-    (which the registry's entries, and so make_prefill and make_serve_step,
-    reach) appends its logits to ``self.logits``."""
+    """Within the block, every ``prefill`` and ``decode_step`` call of
+    ``module`` (the family's model module, ``transformer`` unless given, which
+    the registry's entries, and so make_prefill and make_serve_step, reach)
+    appends its logits to ``self.logits``."""
 
-    def __init__(self):
+    def __init__(self, module=transformer):
+        self.module = module
         self.logits = []
         self.saved = {}
 
     def __enter__(self):
         for name in ("prefill", "decode_step"):
-            fn = self.saved[name] = getattr(transformer, name)
-            setattr(transformer, name, self._wrap(fn))
+            fn = self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, self._wrap(fn))
         return self
 
     def _wrap(self, fn):
@@ -620,7 +647,7 @@ class RecordLogits:
 
     def __exit__(self, *exc):
         for name, fn in self.saved.items():
-            setattr(transformer, name, fn)
+            setattr(self.module, name, fn)
 
 
 def pad_cache(cache, extra):
@@ -1030,7 +1057,36 @@ def phase_times(dev):
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)
+    out["flash_granite"] = time_flash_granite(rng, floor_ms)
     return out
+
+
+def time_flash_granite(rng, floor_ms):
+    """One launch at granite-moe-3b-a800m's shape in bf16 (its prefill and
+    training forward), its plain version and PyTorch's fused attention."""
+    b, sq, sk, h, hk, d, causal = FLASH_GRANITE
+    q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.bfloat16, "cuda")
+    ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
+    plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
+                             n_iter=5, warmup=2)
+    ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def library():  # the yardstick, never called by the port
+        return torch.nn.functional.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                                enable_gqa=True)
+
+    lib_ms, _ = time_launches(library, n_iter=20)
+    lib_err = float((library().transpose(1, 2).float()
+                     - flash_attention_fwd(q, k, v, causal=causal).float()).abs().max())
+    bytes_, flops = flash_cost(q, k, causal)
+    rate, rate_name = FLASH_RATE[q.dtype]
+    bnd, by = bound_ms(bytes_, flops, rate)
+    row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    emit("times", kernel="flash_attention_fwd", shape=list(FLASH_GRANITE), dtype="bfloat16",
+         host_ms=host_ms, bytes=bytes_, flops=flops, bound_rate=rate_name,
+         launch_floor_ms=floor_ms, library="torch.nn.functional.scaled_dot_product_attention",
+         library_max_abs_err=lib_err, **row)
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -1226,10 +1282,11 @@ def train_attention_check(dev, smi):
     return out
 
 
-def train_run(dev, cfg, smi):
+def train_run(dev, cfg, smi, phase="train"):
     """(c) The main path: launch.train.run at full width and depth. Each step
     is timed between two synchronizes and its flash launches counted; the
-    counts are set to 0 just before the run and read just after it."""
+    counts are set to 0 just before the run and read just after it. Then one
+    profiled step. Lines go out under ``phase``."""
     records = []
     make = train_step.make_train_step
 
@@ -1269,12 +1326,15 @@ def train_run(dev, cfg, smi):
           and n == {"flash_attention_fwd": per_step * TRAIN_STEPS, "tiered_decode_partial": 0,
                     "quantize_pages": 0},
           f"flash launches per step {[r['flash_launches'] for r in records]}, total {n}")
-    check(all(t.dtype == torch.bfloat16 for t in base.tree_leaves(params)), "params not bf16")
+    specs = registry.get_api(cfg).specs()
+    check(all(t.dtype == sp.dtype for t, sp in zip(base.tree_leaves(params),
+                                                   base.tree_leaves(specs))),
+          "params are not in their specs' dtypes")
     for i, r in enumerate(records):
-        emit("train", part="c_step", nvidia_smi=smi, step=i, **r)
+        emit(phase, part="c_step", nvidia_smi=smi, step=i, **r)
     ms = sum(r["ms"] for r in records[1:]) / (len(records) - 1)
     summary = dict(arch=cfg.arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
-                   params=base.n_params(registry.get_api(cfg).specs()), dtype="bfloat16",
+                   params=base.n_params(specs), dtype=str(cfg.dtype).replace("torch.", ""),
                    remat=cfg.remat, xent_chunk=cfg.xent_chunk, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                    steps=TRAIN_STEPS, first_step_ms=records[0]["ms"], ms_per_step_after_first=ms,
                    tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
@@ -1296,7 +1356,7 @@ def train_run(dev, cfg, smi):
                    flash_kernel_ms=flash_ms if busy else None,
                    flash_share_of_busy=flash_ms / busy if busy else None,
                    top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
-    emit("train", part="c_full_width", nvidia_smi=smi, **summary)
+    emit(phase, part="c_full_width", nvidia_smi=smi, **summary)
     return n
 
 
@@ -1326,6 +1386,201 @@ def phase_train(dev, cfg, smi):
     launches = train_run(dev, cfg, smi)
     train_resume(dev, cfg, smi)
     return launches, attention
+
+
+# --------------------------------------------------------------------------
+# the MoE family: granite-moe-3b-a800m
+# --------------------------------------------------------------------------
+MOE_STEPS = 32  # decode steps of (b)
+# (a): 2 layers at granite's widths in f32, card against CPU: a prefill of
+# 4 x 64 tokens and 8 greedy steps, then one loss and gradient of 2 x 256
+MOE_CMP = dict(n_layers=2, batch=4, prompt=64, steps=8, train_batch=2, train_seq=256)
+# Tolerances of (a). Logits and the prefill's cache: LOGITS_TOL, absolute, as
+# the dense family's card-vs-CPU steps. Loss and grad norm: TRAIN_TOL's 1e-5
+# relative. Routing is discrete: where two experts' router probabilities lie
+# within the frameworks' f32 rounding of each other, the card may rightly
+# pick the other, which moves that token's output by O(1); the run reports
+# the smallest top-k margin it met, so a failure of that kind shows as such.
+
+
+class RouterMargins:
+    """Within the block, each ``ops.top_k`` call (the MoE router's) records the
+    smallest gap between the k-th and the (k+1)-th largest value of a row:
+    how near the run came to a routing tie."""
+
+    def __init__(self):
+        self.margins = []
+
+    def __enter__(self):
+        self.saved = port_ops.top_k
+
+        def recorded(x, k):
+            v, i = self.saved(x, k + 1) if k < x.shape[-1] else self.saved(x, k)
+            if v.shape[-1] > k:
+                self.margins.append((v[..., k - 1] - v[..., k]).min())
+            return v[..., :k], i[..., :k]
+
+        port_ops.top_k = recorded
+        return self
+
+    def __exit__(self, *exc):
+        port_ops.top_k = self.saved
+
+    def smallest(self):
+        return min(float(m) for m in self.margins) if self.margins else None
+
+
+def moe_card_vs_cpu(dev, cfg, smi):
+    """(a) make_prefill and MOE_CMP["steps"] make_serve_step steps of a 2-layer
+    model at ``cfg``'s widths in f32, on the card and on the CPU from the same
+    state each step: logits and the prefill's cache within LOGITS_TOL, the
+    greedy tokens equal (but in rows whose two best logits on the CPU lie
+    within it); then one loss and its gradient from the same parameters and
+    batch: loss and global grad norm within TRAIN_TOL."""
+    k = MOE_CMP
+    c = cfg.with_(n_layers=k["n_layers"], dtype=torch.float32)
+    p_cpu = numpy_params(c, 11)
+    p_dev = base.tree_map(lambda t: t.to(dev), p_cpu)
+    tokens = torch.tensor(np.random.default_rng(12).integers(
+        0, c.vocab, (k["batch"], k["prompt"])).astype(np.int32))
+    prefill, step = serve_step.make_prefill(c), serve_step.make_serve_step(c)
+    worst, near_ties = {}, 0
+    with RecordLogits(moe) as rec, RouterMargins() as rm:
+        tok_c, cache_c = prefill(p_cpu, {"tokens": tokens})
+        reset_counts()
+        tok_d, cache_d = prefill(p_dev, {"tokens": tokens.to(dev)})
+        torch.cuda.synchronize()
+        n_prefill = counts()
+        for name in cache_c:
+            d = float((cache_d[name].cpu() - cache_c[name]).abs().max())
+            check(d <= LOGITS_TOL, f"prefill cache {name}: {d} (smallest router margin "
+                                   f"{rm.smallest()})")
+            worst[f"cache_{name}"] = d
+        cache_c = pad_cache(cache_c, k["steps"])
+        worst_logits = 0.0
+        for t in range(k["steps"] + 1):
+            lg_c, lg_d = rec.logits[-2], rec.logits[-1].cpu()
+            d = float((lg_d - lg_c).abs().max())
+            check(d <= LOGITS_TOL, f"logits at step {t}: {d} (smallest router margin "
+                                   f"{rm.smallest()})")
+            worst_logits = max(worst_logits, d)
+            ok, ties = same_tokens(tok_d, tok_c, lg_c)
+            check(ok, f"greedy tokens differ at step {t}")
+            near_ties += ties
+            if t == k["steps"]:
+                break
+            pos = torch.full((k["batch"],), k["prompt"] + t, dtype=torch.int32)
+            nxt_c, next_cache = step(p_cpu, cache_c, tok_c[:, None], pos)
+            tok_d, _ = step(p_dev, {n: v.to(dev) for n, v in cache_c.items()},
+                            tok_c[:, None].to(dev), pos.to(dev))
+            tok_c, cache_c = nxt_c, next_cache
+        worst["logits"] = worst_logits
+        margin = rm.smallest()
+    check(n_prefill["flash_attention_fwd"] == c.n_layers, f"prefill launches {n_prefill}")
+
+    data = SyntheticLM(DataConfig(vocab=c.vocab, seq_len=k["train_seq"],
+                                  global_batch=k["train_batch"], seed=1))
+    batch = {n: torch.from_numpy(v) for n, v in data.batch_at(0).items()}
+    loss_fn = registry.get_api(c).loss_fn
+    reset_counts()
+    l_d, g_d = train_step.value_and_grad(loss_fn, p_dev, {n: v.to(dev) for n, v in batch.items()})
+    gn_d = optim.global_norm(g_d)
+    torch.cuda.synchronize()
+    n_train = counts()
+    l_c, g_c = train_step.value_and_grad(loss_fn, p_cpu, batch)
+    gn_c = optim.global_norm(g_c)
+    errs = {"loss": abs(float(l_d) - float(l_c)) / abs(float(l_c)),
+            "grad_norm": abs(float(gn_d) - float(gn_c)) / abs(float(gn_c))}
+    emit("moe", part="a_card_vs_cpu", nvidia_smi=smi, arch=cfg.arch, n_layers=c.n_layers,
+         d_model=c.d_model, dtype="float32", tf32=False, batch=k["batch"], prompt=k["prompt"],
+         steps=k["steps"], max_abs_err=worst, near_ties=near_ties, tol=LOGITS_TOL,
+         smallest_router_margin=margin, train_batch=k["train_batch"], train_seq=k["train_seq"],
+         loss=float(l_c), grad_norm=float(gn_c), rel_err=errs,
+         train_tol={key: TRAIN_TOL[key] for key in errs}, launches_prefill=n_prefill,
+         launches_loss_and_grad=n_train)
+    for key, e in errs.items():
+        check(e <= TRAIN_TOL[key], f"{key}: card against CPU {e}")
+    # the forward, and remat's recompute in the backward
+    check(n_train["flash_attention_fwd"] == 2 * c.n_layers, f"loss launches {n_train}")
+
+
+def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS):
+    """(b) make_prefill over ``batch`` random prompts at full width and depth
+    in bf16 (the specs' dtypes: bf16, the router f32), then ``steps``
+    make_serve_step steps from the padded cache. The counts are set to 0 just
+    before the run and read just after the prefill and after the steps: one
+    flash launch per layer in the prefill, none in a decode step. Then the
+    host syncs of one decode step, and (d) one profiled decode step."""
+    api = registry.get_api(cfg)
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), dtype=torch.int32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    prefill, step = serve_step.make_prefill(cfg), serve_step.make_serve_step(cfg)
+    # warm-up (cuBLAS handles, the kernel's first load), outside the counted run
+    tok, cache = prefill(params, {"tokens": tokens[:, :128]})
+    step(params, pad_cache(cache, 1), tok[:, None],
+         torch.full((batch,), 128, dtype=torch.int32, device=dev))
+    del cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RecordLogits(moe) as rec:
+        t0 = time.perf_counter()
+        tok, cache = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n_prefill = counts()
+        cache = pad_cache(cache, steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            pos = torch.full((batch,), prompt + t, dtype=torch.int32, device=dev)
+            tok, cache = step(params, cache, tok[:, None], pos)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    n = counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0, "quantize_pages": 0}
+    check(n_prefill == want and n == want,
+          f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
+    check(len(rec.logits) == steps + 1
+          and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
+          "non-finite logits")
+    shape = (cfg.n_layers, batch, prompt + steps, cfg.n_kv_heads, cfg.head_dim)
+    check(set(cache) == {"moe_k", "moe_v"} and all(
+        tuple(c.shape) == shape and c.dtype == torch.bfloat16 for c in cache.values()),
+        f"cache {[(n, c.shape, c.dtype) for n, c in cache.items()]}")
+    pos = torch.full((batch,), prompt + steps, dtype=torch.int32, device=dev)
+    (_, _), syncs = host_syncs(lambda: step(params, cache, tok[:, None], pos))
+    emit("moe", part="b_serve", nvidia_smi=smi, arch=cfg.arch, n_layers=cfg.n_layers,
+         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k, dtype="bfloat16",
+         params=base.n_params(api.specs()), batch=batch, prompt=prompt, steps=steps,
+         prefill_ms=prefill_s * 1e3, prompt_tokens_per_s=batch * prompt / prefill_s,
+         decode_ms_per_step=decode_s * 1e3 / steps, decode_tokens_per_s=batch * steps / decode_s,
+         max_memory_allocated=peak, launches_prefill=n_prefill, launches=n,
+         flash_launches_per_decode_step=(n["flash_attention_fwd"]
+                                         - n_prefill["flash_attention_fwd"]) / steps,
+         host_syncs_per_decode_step=len(syncs), host_syncs_by_line=dict(Counter(syncs)))
+    # (d) one profiled decode step
+    wall_ms, device_ms, cpu_ms = profiled(lambda: step(params, cache, tok[:, None], pos))
+    busy = sum(device_ms.values())
+    emit("moe", part="d_profile_decode", nvidia_smi=smi, arch=cfg.arch, batch=batch,
+         cache_len=prompt + steps, wall_ms=wall_ms, device_busy_ms=busy or None,
+         device_busy_share=busy / wall_ms if busy else None,
+         top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
+    return n["flash_attention_fwd"]
+
+
+def phase_moe(dev, smi):
+    """The MoE family on the card (see the module docstring, phase 10).
+    Returns the flash launches of (b)'s serving run and (c)'s training run."""
+    cfg = granite_moe_3b_a800m.CONFIG
+    moe_card_vs_cpu(dev, cfg, smi)
+    serve_launches = moe_serve(dev, cfg, smi)
+    torch.cuda.empty_cache()
+    train_launches = train_run(dev, cfg, smi, phase="moe")["flash_attention_fwd"]
+    torch.cuda.empty_cache()
+    return {"moe_prefill": serve_launches, "moe_train": train_launches}
 
 
 SSD_REQUESTS = 100_000  # quickstart's default
@@ -1409,7 +1664,7 @@ def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
 
 
 def phase_ssd(dev):
-    """Layer A on the card (see the module docstring, phase 10). Returns the
+    """Layer A on the card (see the module docstring, phase 11). Returns the
     summaries, and the open-loop run's (config, final state) by name."""
     out, states = {}, {}
     for name, cfg, trace, cmp_chunks in ssd_runs():
@@ -1564,7 +1819,7 @@ def chrome_trace_schema(doc, cfg, s):
 
 
 def phase_sweep(dev, b_cfg, b_state):
-    """The experiment sweep on the card (see the module docstring, phase 11).
+    """The experiment sweep on the card (see the module docstring, phase 12).
     ``b_cfg`` and ``b_state`` are the ssd phase's open-loop run, for (d)."""
     G = ssd_geometry
     shutil.rmtree(SWEEP_DIR, ignore_errors=True)  # a fresh grid: no checkpoint of an earlier run
@@ -1687,7 +1942,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile, train, ssd or sweep phase)")
+                         "(no path, serve, prefill, times, profile, train, moe, ssd or sweep "
+                         "phase)")
     a = ap.parse_args()
 
     smi = phase_device()
@@ -1709,16 +1965,21 @@ def main():
         phase_profile(dev, cfg)
         phase_profile_prefill(dev, cfg)
         train_launches, train_attention = phase_train(dev, cfg, smi)
+        moe_launches = phase_moe(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
-        # flash attention's main paths: the prefill (f32) and training (bf16)
-        by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"]}
+        # flash attention's main paths: tinyllama's prefill (f32) and training
+        # (bf16), granite's prefill and training (bf16)
+        by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
+                   **moe_launches}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
         extra = {"flash_attention_fwd": dict(
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
-                dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}))}
+                dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}),
+            granite_bf16=dict(**times["flash_granite"], max_abs_err={
+                dt: flash_err[f"granite_{dt}"] for dt in ("float32", "bfloat16")}))}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

@@ -1,0 +1,7 @@
+"""qwen1.5-110b [dense] — GQA kv=8, QKV bias [hf:Qwen/Qwen1.5-110B]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch="qwen1.5-110b", family="dense", n_layers=80, d_model=8192, n_heads=64,
+    n_kv_heads=8, d_ff=49152, vocab=152064, qkv_bias=True,
+)

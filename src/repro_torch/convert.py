@@ -3,9 +3,11 @@
 The ``*_from_numpy`` functions take numpy arrays (the caller does the
 ``np.asarray`` on the JAX side) and the ``*_to_numpy`` functions give them,
 so this module needs no JAX. The two packages lay out a model's layers
-differently: the reference stacks every ``layers`` leaf on a leading
-(n_layers,) axis, the port keeps a list of per-layer dicts;
-``stack_layers`` and ``unstack_layers`` turn one into the other.
+differently: the reference stacks every leaf of a layer group (``layers``;
+for MoE ``moe_layers`` and ``dense_layers``) on a leading axis, the port
+keeps a list of per-layer dicts; ``stack_layers`` and ``unstack_layers``
+turn one into the other. Everything else (MoE's ``mtp`` block among it) is
+carried as it is.
 """
 
 from __future__ import annotations
@@ -36,13 +38,20 @@ def _tree(x, device):
     return tensor_from_numpy(x, device)
 
 
+def layer_depths(cfg) -> dict:
+    """The number of layers in each stacked group of ``cfg``'s parameter tree."""
+    return {"layers": cfg.n_layers, "moe_layers": cfg.n_layers - cfg.first_k_dense,
+            "dense_layers": cfg.first_k_dense}
+
+
 def params_from_numpy(tree, cfg, device=None):
-    """The reference's parameter tree ({"embed", "layers", "ln_f"}, with every
-    ``layers`` leaf stacked on a leading (n_layers,) axis) -> the port's tree,
-    whose ``layers`` is a list of per-layer dicts (views of one stacked
-    tensor per leaf). Weight orientation is the same in both (``x @ W``), so
-    nothing is transposed."""
-    return unstack_layers(_tree(dict(tree), resolve_device(device)), cfg.n_layers)
+    """The reference's parameter tree ({"embed", "layers", "ln_f"}, or for MoE
+    "moe_layers", "dense_layers" and "mtp"; every leaf of a layer group
+    stacked on a leading axis) -> the port's tree, in which each layer group
+    is a list of per-layer dicts (views of one stacked tensor per leaf).
+    Weight orientation is the same in both (``x @ W``), so nothing is
+    transposed."""
+    return unstack_layers(_tree(dict(tree), resolve_device(device)), layer_depths(cfg))
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -51,6 +60,9 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     to the reference's bfloat16 is exact."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+LAYER_GROUPS = ("layers", "moe_layers", "dense_layers")
 
 
 def _stack(layers):
@@ -69,10 +81,11 @@ def _unstack(sub, n):
 
 def stack_layers(tree):
     """The port's layout -> the reference's: in every dict of ``tree`` (a
-    parameter tree, an ``OptState``, or tuples of them), a ``layers`` list of
-    per-layer dicts becomes one dict of tensors stacked on a leading axis."""
+    parameter tree, an ``OptState``, or tuples of them), a layer group's list
+    of per-layer dicts (``layers``, ``moe_layers``, ``dense_layers``) becomes
+    one dict of tensors stacked on a leading axis."""
     if isinstance(tree, dict):
-        return {k: _stack(v) if k == "layers" and isinstance(v, list) else stack_layers(v)
+        return {k: _stack(v) if k in LAYER_GROUPS and isinstance(v, list) else stack_layers(v)
                 for k, v in tree.items()}
     if isinstance(tree, tuple):
         out = (stack_layers(v) for v in tree)
@@ -80,22 +93,23 @@ def stack_layers(tree):
     return tree
 
 
-def unstack_layers(tree, n_layers: int):
-    """The inverse of ``stack_layers``: each stacked ``layers`` dict becomes
-    a list of ``n_layers`` per-layer dicts (views of the stacked tensors)."""
+def unstack_layers(tree, depths):
+    """The inverse of ``stack_layers``: each stacked layer group becomes a
+    list of per-layer dicts (views of the stacked tensors). ``depths`` gives
+    each group's layer count (``layer_depths(cfg)``)."""
     if isinstance(tree, dict):
-        return {k: _unstack(v, n_layers) if k == "layers" and isinstance(v, dict)
-                else unstack_layers(v, n_layers) for k, v in tree.items()}
+        return {k: _unstack(v, depths[k]) if k in LAYER_GROUPS and isinstance(v, dict)
+                else unstack_layers(v, depths) for k, v in tree.items()}
     if isinstance(tree, tuple):
-        out = (unstack_layers(v, n_layers) for v in tree)
+        out = (unstack_layers(v, depths) for v in tree)
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     return tree
 
 
 def params_to_numpy(params) -> dict:
     """The inverse of ``params_from_numpy``: the port's parameter tree as the
-    reference's, every ``layers`` leaf stacked on a leading (n_layers,) axis,
-    with numpy leaves (bfloat16 as float32, see ``tensor_to_numpy``)."""
+    reference's, every leaf of a layer group stacked on a leading axis, with
+    numpy leaves (bfloat16 as float32, see ``tensor_to_numpy``)."""
     return base.tree_map(tensor_to_numpy, stack_layers(params))
 
 
@@ -115,9 +129,11 @@ def opt_state_from_numpy(state, cfg, device=None) -> OptState:
 
 
 def cache_from_numpy(cache, device=None) -> dict:
-    """The reference's dense KV cache ({"k", "v"} of (L, B, S, Hk, Dh), and at
-    kv_bits < 16 the int8 codes with {"k_scale", "v_scale"} f32 scales) with
-    numpy leaves -> the port's, every dtype kept."""
+    """The reference's KV cache with numpy leaves -> the port's, every key and
+    dtype kept: the dense family's {"k", "v"} of (L, B, S, Hk, Dh), and at
+    kv_bits < 16 the int8 codes with {"k_scale", "v_scale"} f32 scales; MoE's
+    {"moe_k", "moe_v"} and, with dense-first layers, {"dense_k", "dense_v"}.
+    The port keeps the reference's stacked layout for caches."""
     return _tree(dict(cache), resolve_device(device))
 
 

@@ -1,7 +1,8 @@
 """Model registry: family dispatch (counterpart of ``repro.models.registry``).
 
-Only the dense family is ported (training loss, prefill, decode and the cache
-specs); the other families are in ROADMAP.md, queue 1.
+Ported: ``dense`` and ``vlm`` (``models/transformer.py``) and ``moe``
+(``models/moe.py``) but its MLA attention. ``encdec``, ``ssm``, ``hybrid``
+and MLA are in ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -10,9 +11,9 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "vlm": transformer, "moe": moe}
 
 
 @dataclass(frozen=True)
@@ -29,6 +30,7 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
+    moe.refuse_mla(cfg)
     mod = _FAMILIES[cfg.family]
     return ModelAPI(
         cfg=cfg,

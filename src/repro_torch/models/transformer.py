@@ -198,13 +198,13 @@ def prefill_attention(q, k, v, cfg: ModelConfig):
 def prefill(params, batch, cfg: ModelConfig):
     """Full-sequence pass that also materializes the KV cache.
 
-    batch: {"tokens": (B, S) int}. Returns (last-position logits (B, 1, V),
-    cache dict), the cache exactly ``cache_len(cfg, S)`` long.
+    batch: {"tokens": (B, S) int}, and for ``vlm`` "img_embeds": (B, N, D),
+    prepended as in ``forward``. Returns (last-position logits (B, 1, V),
+    cache dict), the cache exactly ``cache_len(cfg, N + S)`` long.
     """
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
-    positions = torch.arange(s, device=tokens.device)
+    x = _embed_inputs(params, batch, cfg)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)
     ks, vs = [], []
     for lp in params["layers"]:
         xn = norm(cfg, lp["ln1"], x)

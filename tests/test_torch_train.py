@@ -152,8 +152,7 @@ def test_remat_and_chunking_change_no_value():
 
 def test_vlm_loss_and_grads_match_reference():
     """The vlm branch (image embeddings prepended, their positions cut from
-    the loss), called on the module: the port's registry serves the dense
-    family only."""
+    the loss), called on the module."""
     n_img = 8
     cj, ct = configs(family="vlm", n_img_tokens=n_img)
     pj, pt = params_pair(cj, ct)
@@ -394,7 +393,7 @@ def test_reference_checkpoint_restores_into_the_port(tmp_path):
     like = convert.stack_layers(base.tree_map(torch.zeros_like, port))
     tree, manifest = ckpt.restore(tmp_path / "c", like, device="cpu")
     assert manifest["step"] == 7 and manifest["extra"] == {"by": "reference"}
-    tree = convert.unstack_layers(tree, ct.n_layers)
+    tree = convert.unstack_layers(tree, convert.layer_depths(ct))
     assert_bit_equal(tree, ref)
     assert len(tree[0]["layers"]) == ct.n_layers and isinstance(tree[1], optim.OptState)
 
@@ -411,7 +410,7 @@ def test_port_checkpoint_restores_in_the_reference(tmp_path):
 
 def test_stack_and_unstack_layers_invert():
     cj, ct, ref, (pt, st) = train_state_pair()
-    back = convert.unstack_layers(convert.stack_layers((pt, st)), ct.n_layers)
+    back = convert.unstack_layers(convert.stack_layers((pt, st)), convert.layer_depths(ct))
     for a, b in zip(base.tree_leaves((pt, st)), base.tree_leaves(back)):
         assert a.dtype == b.dtype and torch.equal(a, b)
     np.testing.assert_array_equal(convert.params_to_numpy(pt)["layers"]["attn"]["wq"],

@@ -179,10 +179,48 @@ def test_specs_and_materialize(kind):
 
 
 def test_registry_ports_only_the_dense_family():
+    """The registry serves the families the port has (dense; vlm, which is the
+    dense module; moe without MLA) and refuses the rest, naming ROADMAP.md:
+    encdec, ssm, hybrid, and a moe config with ``mla=True``."""
     _, ct = small_configs("serve_f32")
     api = registry.get_api(ct)
     assert api.cfg is ct and base.n_params(api.specs()) > 0
-    for fam in ("moe", "encdec", "ssm", "hybrid", "vlm"):
+
+    def cfg(fam, **kw):
+        return ModelConfig(arch="x", family=fam, n_layers=1, d_model=8, n_heads=1,
+                           n_kv_heads=1, d_ff=8, vocab=8, n_experts=2, top_k=1, moe_d_ff=8,
+                           **kw)
+
+    for fam in ("moe", "vlm"):
+        assert base.n_params(registry.get_api(cfg(fam)).specs()) > 0
+    for c in (cfg("encdec"), cfg("ssm"), cfg("hybrid"), cfg("moe", mla=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_api(ModelConfig(arch="x", family=fam, n_layers=1, d_model=8,
-                                         n_heads=1, n_kv_heads=1, d_ff=8, vocab=8))
+            registry.get_api(c)
+
+
+def test_vlm_prefill_matches_reference():
+    """internvl2's smoke variant with image embeddings: the prefill prepends
+    them and counts their positions, as the reference's ``_embed_inputs``
+    does. Logits and cache within atol/rtol 1e-4, as the dense prefill."""
+    from repro.configs import internvl2_76b as j_internvl2
+    from repro.configs.base import smoke_variant as j_smoke_variant
+    from repro_torch import convert
+    from repro_torch.configs import internvl2_76b
+    from repro_torch.configs.base import smoke_variant
+
+    cj = j_smoke_variant(j_internvl2.CONFIG).with_(n_layers=2)
+    ct = smoke_variant(internvl2_76b.CONFIG).with_(n_layers=2)
+    pj = j_base.materialize(j_T.specs(cj), jax.random.PRNGKey(0), jnp.float32)
+    pt = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, pj), ct, "cpu")
+    rng = np.random.default_rng(8)
+    n_img, n_txt = ct.n_img_tokens, 12
+    batch = {"tokens": rng.integers(0, ct.vocab, (2, n_txt)).astype(np.int32),
+             "img_embeds": rng.standard_normal((2, n_img, ct.d_model)).astype(np.float32)}
+    lj, cache_j = j_T.prefill(pj, {k: jnp.asarray(v) for k, v in batch.items()}, cj)
+    lt, cache_t = registry.get_api(ct).prefill(pt, {k: torch.from_numpy(v)
+                                                    for k, v in batch.items()})
+    assert cache_t["k"].shape[2] == n_img + n_txt
+    np.testing.assert_allclose(to_np(lt), np.asarray(lj), atol=1e-4, rtol=1e-4)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(to_np(cache_t[k]), np.asarray(cache_j[k]), atol=1e-4,
+                                   rtol=1e-4)
