@@ -7,11 +7,13 @@
 Phases, one JSON line each:
   1. device   the card, its count, and nvidia-smi's name and power limit
   2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds,
-              ptxas report, and flash attention's dynamic shared memory per head dim
+              ptxas report, and flash attention's dynamic shared memory per pair
+              of head dims
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serve and prefill paths' full-width shapes (flash attention also at
-              granite-moe-3b-a800m's, 24 heads over 8, f32 and bf16) and at the CPU
-              tests' shapes
+              granite-moe-3b-a800m's, 24 heads over 8, and at deepseek-v3-671b's
+              MLA prefill, 128 heads with q and k 192 wide over v 128 wide, f32
+              and bf16, and a ragged MLA case) and at the CPU tests' shapes
               (quantize_pages by both entries: contiguous pages, and the store into
               the tier pools, every pool tensor exact)
   4. path     the tiered serve step on the card against the same step on the CPU,
@@ -30,8 +32,8 @@ Phases, one JSON line each:
               host's enqueue time, the least time the card could take (flash
               attention: on the 3xTF32 tensor cores, and on the CUDA cores beside
               it), a one-element op's time as the launch floor, and for flash
-              attention (tinyllama's shape in f32, granite's in bf16) one PyTorch
-              call that computes the same function; the
+              attention (tinyllama's shape in f32, granite's and MLA's in bf16)
+              one PyTorch call that computes the same function; the
               store path's whole calls (the store with its pool copies, append,
               raro_step): device ms, host enqueue ms, and ms per call back to back
   8. profile  torch.profiler over a few full-width RARO steps, and over one
@@ -91,6 +93,23 @@ Phases, one JSON line each:
               the sweep's; (c) latency_load_sweep() at 16,384 requests: mean
               read latency never falls as the offered load rises; (d) the
               Chrome trace of the ssd phase's open-loop run, schema-checked
+ 13. mla      deepseek-v3-671b (MLA: q_lora_rank 1536, kv_lora_rank 512, q and k
+              heads of 192 over v heads of 128; 256 experts top-8 of width 2048,
+              one shared; dense first layers of width 18432; MTP; vocab 129280):
+              (a) 2 layers (1 dense, 1 MoE, the routed experts cut to 16) at the
+              published widths in f32, make_prefill over 2 x 64 tokens and 8
+              make_serve_step steps on the card against the CPU from the same
+              state each step (logits and the latent caches within 1e-3, greedy
+              tokens equal), and one loss_fn forward, MTP included (1e-5
+              relative); (b) the main serving path at the published widths in
+              bf16 at 4 layers (3 dense, 1 MoE of all 256 experts; 14.87 B
+              parameters): make_prefill over 4 x 2048 tokens, then 32
+              make_serve_step steps: prefill ms, decode tokens/s, peak memory of
+              the init and of serving, flash launches (exactly 4 per prefill, 0
+              per decode step), host syncs of a decode step, and a profiled
+              decode step; (c) the flash kernel's autograd entry against the
+              plain attention's autograd at MLA's shape (B 1, S 1024, H 128),
+              f32 and bf16
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -117,12 +136,13 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import ops as port_ops  # noqa: E402
-from repro_torch.configs import granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b)
 from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    flash_attention_fwd, flash_attention_fwd_plain)
+    HEAD_DIMS, flash_attention_fwd, flash_attention_fwd_plain, kernel_block_k)
 # the store entry is read off these modules where it is used, so that the
 # store path's timing and sync counts also run against a tree that lacks it
 from repro_torch.kernels.quant_page import quant_page as qp, ref as qp_ref  # noqa: E402
@@ -181,6 +201,15 @@ FLASH_FULL = (4, PROMPT, PROMPT, 32, 4, 64, True)
 # granite-moe-3b-a800m's prefill and training attention: 24 query heads over 8
 # KV heads (a group of 3), bf16 as its serving and training paths run it
 FLASH_GRANITE = (4, PROMPT, PROMPT, 24, 8, 64, True)
+# deepseek-v3-671b's MLA prefill: 128 heads (no GQA), q and k 192 wide (nope 128
+# + rope 64), v 128 wide (V_DIM), v a strided slice of the expanded latent
+FLASH_MLA = (4, PROMPT, PROMPT, 128, 128, 192, True)
+# a ragged MLA case: Sq and Sk not multiples of the tiles, tail-masked on the
+# reference's (B·H, S, D) layout
+FLASH_MLA_RAGGED = (2, 300, 333, 8, 8, 192, True)
+# the autograd entry at MLA's shape (the flash kernel forward, the plain backward)
+FLASH_MLA_TRAIN = (1, 1024, 1024, 128, 128, 192, True)
+V_DIM = dict(HEAD_DIMS)  # the v head dim the kernel pairs with each q and k head dim
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
 # not multiples of the kernel's 64-row tiles, with GQA and no causal mask
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
@@ -322,20 +351,24 @@ def store_cost(kpage, tier, slot, pools, tiers=(0, 1, 2)):
 
 
 def flash_inputs(rng, b, sq, sk, h, hk, d, dtype, device):
-    """Random q (B, Sq, H, D) and k, v (B, Sk, Hk, D) in ``dtype``."""
-    return [torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(device)
-            for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, d))]
+    """Random q (B, Sq, H, D), k (B, Sk, Hk, D) and v (B, Sk, Hk, Dv) in
+    ``dtype``, Dv = V_DIM[d]. Where Dv < D, v is the second half of a (B, Sk,
+    Hk, 2 Dv) tensor, strided as MLA's prefill hands it over."""
+    dv = V_DIM[d]
+    q, k, kv = [torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(device)
+                for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, dv if dv == d else 2 * dv))]
+    return q, k, kv[..., -dv:]
 
 
-def flash_cost(q, k, causal=True):
+def flash_cost(q, k, v, causal=True):
     """(bytes, flops) of one launch: q, k, v read once and o written once; per
-    (query, key) pair the mask keeps, D multiply-adds for the score and D for
+    (query, key) pair the mask keeps, D multiply-adds for the score and Dv for
     P.V, at 2 operations each."""
     b, sq, h, d = q.shape
-    sk = k.shape[1]
+    sk, dv = k.shape[1], v.shape[-1]
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    bytes_ = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return bytes_, 4 * d * b * h * pairs
+    bytes_ = (q.numel() + k.numel() + v.numel() + q.numel() // d * dv) * q.element_size()
+    return bytes_, 2 * (d + dv) * b * h * pairs
 
 
 def bound_ms(bytes_, flops, rate=F32_FLOP_PER_S):
@@ -365,7 +398,7 @@ def phase_build():
     report = build.build(["tiered_attention", "quant_page", "flash_attention"])
     smem = build.load("flash_attention").flash_attention_smem_bytes
     smem.restype = ctypes.c_int
-    flash_smem = {f"D{d} {dt}": smem(d, int(dt == "bf16")) for d in (16, 32, 64, 128)
+    flash_smem = {f"D{d},{dv} {dt}": smem(d, dv, int(dt == "bf16")) for d, dv in HEAD_DIMS
                   for dt in ("f32", "bf16")}
     emit("build", seconds=time.perf_counter() - t0, report=report,
          flash_dynamic_smem_bytes=flash_smem)
@@ -465,19 +498,22 @@ def check_flash(dev, full_only):
     layouts it takes; a tail mask (sk_valid < Sk) on the reference's layout."""
     rng = np.random.default_rng(4)
     cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
-             ("granite", FLASH_GRANITE, torch.bfloat16)]
+             ("granite", FLASH_GRANITE, torch.bfloat16), ("mla", FLASH_MLA, torch.float32),
+             ("mla", FLASH_MLA, torch.bfloat16)]
     if not full_only:
         cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
+                  for dt in (torch.float32, torch.bfloat16)]
+        cases += [("test_mla_ragged", FLASH_MLA_RAGGED, dt)
                   for dt in (torch.float32, torch.bfloat16)]
     worst = {}
     for label, (b, sq, sk, h, hk, d, causal), dt in cases:
         q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
-        heads_first = [t.transpose(1, 2).reshape(-1, t.shape[1], d) for t in (q, k, v)]
+        heads_first = [t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]) for t in (q, k, v)]
         sk_valid = sk - 5 if label.startswith("test") else sk
         outs = [flash_attention_fwd(q, k, v, causal=causal),
                 flash_attention_fwd(*heads_first, sk_valid=sk_valid, causal=causal)]
         torch.cuda.synchronize()
-        bk = 32 if d == 128 else 64  # the kernel's KV tile
+        bk = kernel_block_k(d, dt)  # the kernel's KV tile
         refs = [flash_attention_fwd_plain(q, k, v, causal=causal, block_k=bk),
                 flash_attention_fwd_plain(*heads_first, sk_valid=sk_valid, causal=causal,
                                           block_k=bk)]
@@ -489,11 +525,11 @@ def check_flash(dev, full_only):
             errs[name] = float((o.float() - r.float()).abs().max())
         dname = str(dt).replace("torch.", "")
         worst[dname] = max(worst.get(dname, 0.0), *errs.values())
-        if label == "granite":
-            worst[f"granite_{dname}"] = max(errs.values())
+        if label in ("granite", "mla"):
+            worst[f"{label}_{dname}"] = max(errs.values())
         emit("kernels", kernel="flash_attention_fwd", shape=label,
-             b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], dtype=dname, sk_valid=sk_valid,
-             tol=FLASH_TOL[dt], max_abs_err=errs)
+             b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
+             sk_valid=sk_valid, tol=FLASH_TOL[dt], max_abs_err=errs)
     return worst
 
 
@@ -1045,7 +1081,7 @@ def phase_times(dev):
     lib_ms, lib_host_ms = time_launches(library, n_iter=20)
     lib_err = float((library().transpose(1, 2) - flash_attention_fwd(q, k, v, causal=causal))
                     .abs().max())
-    bytes_, flops = flash_cost(q, k, causal)
+    bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
     core_bnd, core_by = bound_ms(bytes_, flops)  # PR 12's bound, on the CUDA cores
@@ -1057,14 +1093,16 @@ def phase_times(dev):
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)
-    out["flash_granite"] = time_flash_granite(rng, floor_ms)
+    out["flash_granite"] = time_flash_bf16(rng, floor_ms, FLASH_GRANITE)
+    out["flash_mla"] = time_flash_bf16(rng, floor_ms, FLASH_MLA)
     return out
 
 
-def time_flash_granite(rng, floor_ms):
-    """One launch at granite-moe-3b-a800m's shape in bf16 (its prefill and
-    training forward), its plain version and PyTorch's fused attention."""
-    b, sq, sk, h, hk, d, causal = FLASH_GRANITE
+def time_flash_bf16(rng, floor_ms, shape):
+    """One launch at a model's shape in bf16 (granite-moe-3b-a800m's prefill
+    and training forward; deepseek-v3-671b's MLA prefill, whose v head is
+    narrower), its plain version and PyTorch's fused attention."""
+    b, sq, sk, h, hk, d, causal = shape
     q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.bfloat16, "cuda")
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
     plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
@@ -1078,11 +1116,11 @@ def time_flash_granite(rng, floor_ms):
     lib_ms, _ = time_launches(library, n_iter=20)
     lib_err = float((library().transpose(1, 2).float()
                      - flash_attention_fwd(q, k, v, causal=causal).float()).abs().max())
-    bytes_, flops = flash_cost(q, k, causal)
+    bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
     row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
-    emit("times", kernel="flash_attention_fwd", shape=list(FLASH_GRANITE), dtype="bfloat16",
+    emit("times", kernel="flash_attention_fwd", shape=list(shape), d_v=V_DIM[d], dtype="bfloat16",
          host_ms=host_ms, bytes=bytes_, flops=flops, bound_rate=rate_name,
          launch_floor_ms=floor_ms, library="torch.nn.functional.scaled_dot_product_attention",
          library_max_abs_err=lib_err, **row)
@@ -1204,19 +1242,19 @@ def train_card_vs_cpu(dev, cfg, smi):
     check(not fails, f"card against CPU: {fails}")
 
 
-def train_attention_check(dev, smi):
-    """(b) The autograd entry (the flash kernel forward, the plain attention's
-    VJP backward) against the plain blockwise attention's own autograd at the
-    training shape, in f32 and bf16: output and dq, dk, dv within FLASH_TOL.
-    flash_attention_fwd must refuse inputs that require grad. Then, in bf16,
-    the times of the forward kernel, the entry's backward, the plain version
-    and PyTorch's fused attention, forward and backward."""
-    rng = np.random.default_rng(6)
-    b, sq, sk, h, hk, d, causal = FLASH_FULL
+def autograd_entry_check(dev, smi, shape, phase, part, seed):
+    """The autograd entry (the flash kernel forward, the plain attention's VJP
+    backward) against the plain blockwise attention's own autograd at
+    ``shape``, in f32 and bf16: output and dq, dk, dv within FLASH_TOL.
+    flash_attention_fwd must refuse inputs that require grad. Returns the
+    errors by dtype name and the last (bf16) q, k, v and output gradient."""
+    rng = np.random.default_rng(seed)
+    b, sq, sk, h, hk, d, causal = shape
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
-        do = torch.tensor(rng.standard_normal(q.shape).astype(np.float32)).to(dt).to(dev)
+        do = torch.tensor(rng.standard_normal((*q.shape[:3], v.shape[3])).astype(np.float32)
+                          ).to(dt).to(dev)
         res = []
         for f in (lambda *a: flash_attention_train(*a, causal=causal),
                   lambda *a: attn.blockwise_attention(*a, causal=causal)):
@@ -1241,9 +1279,18 @@ def train_attention_check(dev, smi):
         check(refused, "flash_attention_fwd ran on inputs that require grad")
         dname = str(dt).replace("torch.", "")
         out[dname] = dict(max_abs_err=errs)
-        emit("train", part="b_autograd_entry", nvidia_smi=smi,
-             b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype=dname, tol=FLASH_TOL[dt],
-             max_abs_err=errs, fwd_refuses_grad=refused)
+        emit(phase, part=part, nvidia_smi=smi, b_sq_sk_h_hk_d_causal=list(shape), d_v=V_DIM[d],
+             dtype=dname, tol=FLASH_TOL[dt], max_abs_err=errs, fwd_refuses_grad=refused)
+    return out, (q, k, v, do)
+
+
+def train_attention_check(dev, smi):
+    """(b) The autograd entry against the plain attention's autograd at the
+    training shape (``autograd_entry_check``). Then, in bf16, the times of
+    the forward kernel, the entry's backward, the plain version and
+    PyTorch's fused attention, forward and backward."""
+    causal = FLASH_FULL[-1]
+    out, (q, k, v, do) = autograd_entry_check(dev, smi, FLASH_FULL, "train", "b_autograd_entry", 6)
     # times at the training shape in bf16 (q, k, v, do of the last pass)
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
     plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
@@ -1266,7 +1313,7 @@ def train_attention_check(dev, smi):
     lib_bwd_ms, _ = time_launches(lambda: torch.autograd.grad(ol, lleaves, dol, retain_graph=True),
                                   n_iter=10, warmup=2)
     del ol, lleaves
-    bytes_, flops = flash_cost(q, k, causal)
+    bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
     # the backward: q, k, v, do read once and dq, dk, dv written once; five
@@ -1394,7 +1441,17 @@ def phase_train(dev, cfg, smi):
 MOE_STEPS = 32  # decode steps of (b)
 # (a): 2 layers at granite's widths in f32, card against CPU: a prefill of
 # 4 x 64 tokens and 8 greedy steps, then one loss and gradient of 2 x 256
-MOE_CMP = dict(n_layers=2, batch=4, prompt=64, steps=8, train_batch=2, train_seq=256)
+MOE_CMP = dict(cut=dict(n_layers=2), batch=4, prompt=64, steps=8, train_batch=2, train_seq=256,
+               grad=True, seed=11)
+# the mla phase's (a): deepseek-v3-671b at its published widths cut to 2 layers
+# (1 dense, 1 MoE) and 16 routed experts (top-8 and the shared expert kept),
+# ~3.1 B parameters, 12.5 GB in f32 on each side: a prefill of 2 x 64 tokens
+# and 8 greedy steps, then one loss forward of 2 x 64 (MTP included)
+MLA_CMP = dict(cut=dict(n_layers=2, first_k_dense=1, n_experts=16), batch=2, prompt=64, steps=8,
+               train_batch=2, train_seq=64, grad=False, seed=13)
+# the mla phase's (b): deepseek-v3's 3 dense layers and 1 MoE layer of all 256
+# experts at the published widths, 14.87 B parameters, bf16 (the router f32)
+MLA_SERVE_LAYERS = dict(n_layers=4, first_k_dense=3)
 # Tolerances of (a). Logits and the prefill's cache: LOGITS_TOL, absolute, as
 # the dense family's card-vs-CPU steps. Loss and grad norm: TRAIN_TOL's 1e-5
 # relative. Routing is discrete: where two experts' router probabilities lie
@@ -1430,18 +1487,17 @@ class RouterMargins:
         return min(float(m) for m in self.margins) if self.margins else None
 
 
-def moe_card_vs_cpu(dev, cfg, smi):
-    """(a) make_prefill and MOE_CMP["steps"] make_serve_step steps of a 2-layer
-    model at ``cfg``'s widths in f32, on the card and on the CPU from the same
+def moe_card_vs_cpu(dev, cfg, smi, k=MOE_CMP, phase="moe"):
+    """(a) make_prefill and k["steps"] make_serve_step steps of ``cfg`` cut by
+    k["cut"] at its widths in f32, on the card and on the CPU from the same
     state each step: logits and the prefill's cache within LOGITS_TOL, the
     greedy tokens equal (but in rows whose two best logits on the CPU lie
-    within it); then one loss and its gradient from the same parameters and
-    batch: loss and global grad norm within TRAIN_TOL."""
-    k = MOE_CMP
-    c = cfg.with_(n_layers=k["n_layers"], dtype=torch.float32)
-    p_cpu = numpy_params(c, 11)
+    within it); then one loss, with its gradient where k["grad"], from the
+    same parameters and batch: loss (and global grad norm) within TRAIN_TOL."""
+    c = cfg.with_(**k["cut"], dtype=torch.float32)
+    p_cpu = numpy_params(c, k["seed"])
     p_dev = base.tree_map(lambda t: t.to(dev), p_cpu)
-    tokens = torch.tensor(np.random.default_rng(12).integers(
+    tokens = torch.tensor(np.random.default_rng(k["seed"] + 1).integers(
         0, c.vocab, (k["batch"], k["prompt"])).astype(np.int32))
     prefill, step = serve_step.make_prefill(c), serve_step.make_serve_step(c)
     worst, near_ties = {}, 0
@@ -1482,37 +1538,55 @@ def moe_card_vs_cpu(dev, cfg, smi):
                                   global_batch=k["train_batch"], seed=1))
     batch = {n: torch.from_numpy(v) for n, v in data.batch_at(0).items()}
     loss_fn = registry.get_api(c).loss_fn
+    batch_d = {n: v.to(dev) for n, v in batch.items()}
     reset_counts()
-    l_d, g_d = train_step.value_and_grad(loss_fn, p_dev, {n: v.to(dev) for n, v in batch.items()})
-    gn_d = optim.global_norm(g_d)
+    if k["grad"]:
+        l_d, g_d = train_step.value_and_grad(loss_fn, p_dev, batch_d)
+        gn_d = optim.global_norm(g_d)
+    else:
+        with torch.no_grad():
+            l_d = loss_fn(p_dev, batch_d)
     torch.cuda.synchronize()
     n_train = counts()
-    l_c, g_c = train_step.value_and_grad(loss_fn, p_cpu, batch)
-    gn_c = optim.global_norm(g_c)
-    errs = {"loss": abs(float(l_d) - float(l_c)) / abs(float(l_c)),
-            "grad_norm": abs(float(gn_d) - float(gn_c)) / abs(float(gn_c))}
-    emit("moe", part="a_card_vs_cpu", nvidia_smi=smi, arch=cfg.arch, n_layers=c.n_layers,
-         d_model=c.d_model, dtype="float32", tf32=False, batch=k["batch"], prompt=k["prompt"],
+    errs, metrics = {}, {}
+    if k["grad"]:
+        l_c, g_c = train_step.value_and_grad(loss_fn, p_cpu, batch)
+        gn_c = optim.global_norm(g_c)
+        errs["grad_norm"] = abs(float(gn_d) - float(gn_c)) / abs(float(gn_c))
+        metrics["grad_norm"] = float(gn_c)
+    else:
+        with torch.no_grad():
+            l_c = loss_fn(p_cpu, batch)
+    errs["loss"] = abs(float(l_d) - float(l_c)) / abs(float(l_c))
+    emit(phase, part="a_card_vs_cpu", nvidia_smi=smi, arch=cfg.arch, cut=k["cut"],
+         n_layers=c.n_layers, d_model=c.d_model, params=base.n_params(registry.get_api(c).specs()),
+         dtype="float32", tf32=False, batch=k["batch"], prompt=k["prompt"],
          steps=k["steps"], max_abs_err=worst, near_ties=near_ties, tol=LOGITS_TOL,
          smallest_router_margin=margin, train_batch=k["train_batch"], train_seq=k["train_seq"],
-         loss=float(l_c), grad_norm=float(gn_c), rel_err=errs,
+         loss=float(l_c), **metrics, rel_err=errs,
          train_tol={key: TRAIN_TOL[key] for key in errs}, launches_prefill=n_prefill,
-         launches_loss_and_grad=n_train)
+         **{"launches_loss_and_grad" if k["grad"] else "launches_loss": n_train})
     for key, e in errs.items():
         check(e <= TRAIN_TOL[key], f"{key}: card against CPU {e}")
-    # the forward, and remat's recompute in the backward
-    check(n_train["flash_attention_fwd"] == 2 * c.n_layers, f"loss launches {n_train}")
+    # each attention's forward (the MTP block's too), and with a gradient remat's
+    # recompute in the backward
+    want = (2 if k["grad"] else 1) * (c.n_layers + c.mtp_depth)
+    check(n_train["flash_attention_fwd"] == want, f"loss launches {n_train}, want {want}")
 
 
-def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS):
-    """(b) make_prefill over ``batch`` random prompts at full width and depth
-    in bf16 (the specs' dtypes: bf16, the router f32), then ``steps``
+def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS, phase="moe"):
+    """(b) make_prefill over ``batch`` random prompts at ``cfg``'s widths and
+    depth in bf16 (the specs' dtypes: bf16, the router f32), then ``steps``
     make_serve_step steps from the padded cache. The counts are set to 0 just
     before the run and read just after the prefill and after the steps: one
     flash launch per layer in the prefill, none in a decode step. Then the
-    host syncs of one decode step, and (d) one profiled decode step."""
+    host syncs of one decode step, and (d) one profiled decode step. The peak
+    memory of drawing the parameters (each tensor drawn in f32, then cast) is
+    reported apart from serving's."""
     api = registry.get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
     params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    init_peak = torch.cuda.max_memory_allocated()
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), dtype=torch.int32, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     prefill, step = serve_step.make_prefill(cfg), serve_step.make_serve_step(cfg)
@@ -1546,25 +1620,27 @@ def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS):
     check(len(rec.logits) == steps + 1
           and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
           "non-finite logits")
-    shape = (cfg.n_layers, batch, prompt + steps, cfg.n_kv_heads, cfg.head_dim)
-    check(set(cache) == {"moe_k", "moe_v"} and all(
-        tuple(c.shape) == shape and c.dtype == torch.bfloat16 for c in cache.values()),
-        f"cache {[(n, c.shape, c.dtype) for n, c in cache.items()]}")
+    shapes = {n: sp.shape for n, sp in api.init_cache_specs(batch, prompt + steps).items()}
+    check({n: tuple(c.shape) for n, c in cache.items()} == shapes
+          and all(c.dtype == torch.bfloat16 for c in cache.values()),
+          f"cache {[(n, c.shape, c.dtype) for n, c in cache.items()]}, want {shapes}")
     pos = torch.full((batch,), prompt + steps, dtype=torch.int32, device=dev)
     (_, _), syncs = host_syncs(lambda: step(params, cache, tok[:, None], pos))
-    emit("moe", part="b_serve", nvidia_smi=smi, arch=cfg.arch, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k, dtype="bfloat16",
-         params=base.n_params(api.specs()), batch=batch, prompt=prompt, steps=steps,
+    emit(phase, part="b_serve", nvidia_smi=smi, arch=cfg.arch, n_layers=cfg.n_layers,
+         first_k_dense=cfg.first_k_dense, d_model=cfg.d_model, n_experts=cfg.n_experts,
+         top_k=cfg.top_k, dtype="bfloat16", params=base.n_params(api.specs()), batch=batch,
+         prompt=prompt, steps=steps, cache={n: list(v) for n, v in shapes.items()},
          prefill_ms=prefill_s * 1e3, prompt_tokens_per_s=batch * prompt / prefill_s,
          decode_ms_per_step=decode_s * 1e3 / steps, decode_tokens_per_s=batch * steps / decode_s,
-         max_memory_allocated=peak, launches_prefill=n_prefill, launches=n,
+         init_max_memory_allocated=init_peak, max_memory_allocated=peak,
+         launches_prefill=n_prefill, launches=n,
          flash_launches_per_decode_step=(n["flash_attention_fwd"]
                                          - n_prefill["flash_attention_fwd"]) / steps,
          host_syncs_per_decode_step=len(syncs), host_syncs_by_line=dict(Counter(syncs)))
     # (d) one profiled decode step
     wall_ms, device_ms, cpu_ms = profiled(lambda: step(params, cache, tok[:, None], pos))
     busy = sum(device_ms.values())
-    emit("moe", part="d_profile_decode", nvidia_smi=smi, arch=cfg.arch, batch=batch,
+    emit(phase, part="d_profile_decode", nvidia_smi=smi, arch=cfg.arch, batch=batch,
          cache_len=prompt + steps, wall_ms=wall_ms, device_busy_ms=busy or None,
          device_busy_share=busy / wall_ms if busy else None,
          top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
@@ -1581,6 +1657,21 @@ def phase_moe(dev, smi):
     train_launches = train_run(dev, cfg, smi, phase="moe")["flash_attention_fwd"]
     torch.cuda.empty_cache()
     return {"moe_prefill": serve_launches, "moe_train": train_launches}
+
+
+def phase_mla(dev, smi):
+    """deepseek-v3-671b's MLA on the card (see the module docstring, phase
+    13): (a) card against CPU in f32, (b) the main serving path in bf16, (c)
+    the autograd entry at MLA's head pair. Returns (b)'s flash launches and
+    (c)'s errors."""
+    cfg = deepseek_v3_671b.CONFIG
+    moe_card_vs_cpu(dev, cfg, smi, MLA_CMP, phase="mla")
+    torch.cuda.empty_cache()
+    serve_launches = moe_serve(dev, cfg.with_(**MLA_SERVE_LAYERS), smi, phase="mla")
+    torch.cuda.empty_cache()
+    entry, _ = autograd_entry_check(dev, smi, FLASH_MLA_TRAIN, "mla", "c_autograd_entry", 14)
+    torch.cuda.empty_cache()
+    return serve_launches, entry
 
 
 SSD_REQUESTS = 100_000  # quickstart's default
@@ -1942,8 +2033,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile, train, moe, ssd or sweep "
-                         "phase)")
+                         "(no path, serve, prefill, times, profile, train, moe, mla, ssd or "
+                         "sweep phase)")
     a = ap.parse_args()
 
     smi = phase_device()
@@ -1966,12 +2057,14 @@ def main():
         phase_profile_prefill(dev, cfg)
         train_launches, train_attention = phase_train(dev, cfg, smi)
         moe_launches = phase_moe(dev, smi)
+        mla_launches, mla_entry = phase_mla(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
         # flash attention's main paths: tinyllama's prefill (f32) and training
-        # (bf16), granite's prefill and training (bf16)
+        # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
+        # prefill (bf16)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
-                   **moe_launches}
+                   **moe_launches, "mla_prefill": mla_launches}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
@@ -1979,7 +2072,10 @@ def main():
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
                 dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}),
             granite_bf16=dict(**times["flash_granite"], max_abs_err={
-                dt: flash_err[f"granite_{dt}"] for dt in ("float32", "bfloat16")}))}
+                dt: flash_err[f"granite_{dt}"] for dt in ("float32", "bfloat16")}),
+            mla_bf16=dict(**times["flash_mla"], max_abs_err={
+                dt: flash_err[f"mla_{dt}"] for dt in ("float32", "bfloat16")},
+                autograd_entry_max_abs_err={dt: r["max_abs_err"] for dt, r in mla_entry.items()}))}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

@@ -8,7 +8,10 @@
 // tiles; P.V with p rounded to v's type first (bf16 at bf16 inputs) and the
 // tile's product rounded to v's type, as the reference's `lax.dot` of two bf16
 // operands gives bf16; the finalize divides by max(l, 1e-30) and writes q's
-// type. GQA: query head h reads KV head h / (H / Hk).
+// type. GQA: query head h reads KV head h / (H / Hk). The query and key heads
+// are DQK wide and the value head DV wide: the pairs (d, d) for d in 16, 32, 64
+// and 128, and (192, 128), MLA's (nope 128 + rope 64 over v 128); the scale is
+// DQK^-0.5.
 //
 // Grid: the TPU version walks (B*H, Sq/BQ, Sk/BK) with the KV axis innermost
 // and in order, carrying m, l and acc in scratch memory across it. Blocks here
@@ -28,6 +31,11 @@
 // big.big + big.small + small.big with f32 sums (small.small, ~2^-22 of it, is
 // dropped). That is three TF32 products, 3 x 6.9e10 / 495e12 = 0.42 ms at best,
 // and agrees with f32 to ~1e-6. bf16 inputs take one bf16 product with f32 sums.
+// MLA's prefill (B 4, S 2048, H 128 over 128, (192, 128), causal, bf16) does
+// ~6.9e11 operations against ~1.34 GB: 0.70 ms at the bf16 tensor cores' rate,
+// above the 0.40 ms of its bytes. The f32 instance at (192, 128) keeps Q's big
+// and small parts in registers (192 a thread beside acc's 64), so it spills; it
+// is right, not fast, and serves the card-against-CPU checks.
 //
 // The instructions. f32: wgmma m64nNk8 tf32, a warpgroup (4 warps, 64 query
 // rows) at a time, A (Q, then P) from registers and B (K, then V) from shared
@@ -77,17 +85,19 @@ struct Strides {  // in elements; the head dim is contiguous
   long long b, s, h;
 };
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 struct Cfg {
   static constexpr bool kF32 = sizeof(T) == 4;
-  static constexpr int BK = D <= 64 ? 64 : 32;  // keys per KV tile
+  // keys per KV tile; f32 at DQK 192 takes 16, so that three ring slots of
+  // split K and V^T (40 KB each) fit the block's shared memory
+  static constexpr int BK = DQK <= 64 ? 64 : (kF32 && DQK > 128 ? 16 : 32);
   // bf16 tiles, in elements: rows padded so that fragment loads spread
-  static constexpr int LDK = D + 8;   // per key row of K
-  static constexpr int LDV = BK + 8;  // per d row of V^T
+  static constexpr int LDK = DQK + 8;  // per key row of K
+  static constexpr int LDV = BK + 8;   // per d row of V^T
   // one tile as prepared and as the ring holds it; f32: K big, K small, V^T
   // big, V^T small; bf16: K, V^T
-  static constexpr size_t kKs = kF32 ? 2 * (size_t)BK * D * 4 : (size_t)BK * LDK * 2;
-  static constexpr size_t kVs = kF32 ? 2 * (size_t)BK * D * 4 : (size_t)D * LDV * 2;
+  static constexpr size_t kKs = kF32 ? 2 * (size_t)BK * DQK * 4 : (size_t)BK * LDK * 2;
+  static constexpr size_t kVs = kF32 ? 2 * (size_t)BK * DV * 4 : (size_t)DV * LDV * 2;
   static constexpr size_t kTile = kKs + kVs;
   static constexpr int kSlots = 3;  // tiles in the ring
   static constexpr size_t kBars = kSlots * kTile;  // then 2 x kSlots mbarriers
@@ -292,12 +302,12 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ tiles,
                            T* __restrict__ o, Strides qs, Strides os, int H, int Hk, int Sq,
                            int n_kv, int sk_valid, int causal, float scale) {
-  using C = Cfg<D, T>;
+  using C = Cfg<DQK, DV, T>;
   constexpr int BK = C::BK, LDK = C::LDK, LDV = C::LDV;
   extern __shared__ float4 smem4[];
   char* smem = reinterpret_cast<char*>(smem4);
@@ -334,7 +344,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
 
   // Q fragments, kept in registers, in the A fragment's own order: tf32 (k-step
   // of 8 d's) columns t and t+4; bf16 (k-step of 16) columns 2t, 2t+1 and +8.
-  constexpr int KQ = C::kF32 ? D / 8 : D / 16;
+  constexpr int KQ = C::kF32 ? DQK / 8 : DQK / 16;
   uint32_t qa[KQ][4], qsm[C::kF32 ? KQ : 1][4];
 #pragma unroll
   for (int kk = 0; kk < KQ; ++kk) {
@@ -360,9 +370,9 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
@@ -404,7 +414,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
       const T* kd = ks_buf(slot);
       const T* vd = vs_buf(slot);
       float s[BK / 8][4];  // element e of n-tile j: row (e < 2 ? r0 : r1), key 8j + 2t + (e & 1)
-      float pv[D / 8][4];  // the tile's P V
+      float pv[DV / 8][4];  // the tile's P V
 
       // S = Q K^T
       if constexpr (C::kF32) {
@@ -414,8 +424,8 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < KQ; ++kk) {  // k-step: 2 core matrices, 256 bytes
-          const uint64_t big = smem_desc(kbig + 64 * kk, 128, 128 * (D / 4));
-          const uint64_t small = smem_desc(kbig + BK * D + 64 * kk, 128, 128 * (D / 4));
+          const uint64_t big = smem_desc(kbig + 64 * kk, 128, 128 * (DQK / 4));
+          const uint64_t small = smem_desc(kbig + BK * DQK + 64 * kk, 128, 128 * (DQK / 4));
           wgmma_tf32<BK>(s, qsm[kk], big, kk > 0);
           wgmma_tf32<BK>(s, qa[kk], small, 1);
           wgmma_tf32<BK>(s, qa[kk], big, 1);
@@ -495,22 +505,22 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
 #pragma unroll
         for (int j = 0; j < BK / 8; ++j) {  // k-step: keys 8j..8j+7, 256 bytes
           const uint64_t big = smem_desc(vbig + 64 * j, 128, 128 * (BK / 4));
-          const uint64_t small = smem_desc(vbig + BK * D + 64 * j, 128, 128 * (BK / 4));
-          wgmma_tf32<D>(pv, psm[j], big, j > 0);
-          wgmma_tf32<D>(pv, pb[j], small, 1);
-          wgmma_tf32<D>(pv, pb[j], big, 1);
+          const uint64_t small = smem_desc(vbig + BK * DV + 64 * j, 128, 128 * (BK / 4));
+          wgmma_tf32<DV>(pv, psm[j], big, j > 0);
+          wgmma_tf32<DV>(pv, pb[j], small, 1);
+          wgmma_tf32<DV>(pv, pb[j], big, 1);
         }
         wgmma_commit();
         if (my_turn == 1 || kt + 1 < n_kt) turn_pass(other_turn);  // none owed at the end
         wgmma_wait();
         fence_regs(pv);
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
+        for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] * corr[e >> 1] + pv[n][e];
       } else {
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
+        for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
@@ -520,14 +530,14 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
                                   pack_bf16(s[2 * i + 1][0], s[2 * i + 1][1]),
                                   pack_bf16(s[2 * i + 1][2], s[2 * i + 1][3])};
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n) {
+          for (int n = 0; n < DV / 8; ++n) {
             const uint32_t* vw = reinterpret_cast<const uint32_t*>(vd + (8 * n + g) * LDV) +
                                  8 * i + t;
             mma_bf16(pv[n], pa, vw[0], vw[4]);
           }
         }
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
+        for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             acc[n][e] = acc[n][e] * corr[e >> 1] + round_bf16(pv[n][e]);
@@ -543,7 +553,7 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
     const float den = fmaxf(l[i], 1e-30f);
     T* ob = o + b * os.b + r * os.s + h * os.h + 2 * t;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const float x0 = acc[n][2 * i] / den, x1 = acc[n][2 * i + 1] / den;
       if constexpr (C::kF32) {
         *reinterpret_cast<float2*>(ob + 8 * n) = make_float2(x0, x1);
@@ -558,12 +568,12 @@ flash_attention_fwd_kernel(const T* __restrict__ q, const char* __restrict__ til
 // (split, transposed, in core matrices), into `tiles`: the main kernel's
 // blocks then copy tiles as they are, and the split of a K or V element, which
 // 16 query tiles and 8 query heads share, is taken once instead of in each.
-// Keys at or past Sk are zeros.
-template <int D, typename T>
+// Keys at or past Sk are zeros. K is read DQK wide, V DV wide.
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_prepare_kv_kernel(const T* __restrict__ k, const T* __restrict__ v, char* __restrict__ tiles,
                         Strides ks, Strides vs, int Hk, int Sk, int n_kv) {
-  using C = Cfg<D, T>;
+  using C = Cfg<DQK, DV, T>;
   constexpr int BK = C::BK, LDK = C::LDK, LDV = C::LDV;
   const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int k0 = kt * BK;
@@ -575,8 +585,8 @@ flash_prepare_kv_kernel(const T* __restrict__ k, const T* __restrict__ v, char* 
     uint4* vd = reinterpret_cast<uint4*>(tile + C::kKs);
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
     // K: 4 d's of a key are one row of core matrix (key / 8, d / 4)
-    for (int c = tid; c < BK * D / 4; c += kThreads) {
-      const int key = c / (D / 4), ck = c % (D / 4);
+    for (int c = tid; c < BK * DQK / 4; c += kThreads) {
+      const int key = c / (DQK / 4), ck = c % (DQK / 4);
       const float4 x =
           k0 + key < Sk ? *reinterpret_cast<const float4*>(kb + (k0 + key) * ks.s + 4 * ck) : zero;
       uint4 bg, sm;
@@ -584,14 +594,14 @@ flash_prepare_kv_kernel(const T* __restrict__ k, const T* __restrict__ v, char* 
       split(x.y, bg.y, sm.y);
       split(x.z, bg.z, sm.z);
       split(x.w, bg.w, sm.w);
-      const int row = 8 * ((key >> 3) * (D / 4) + ck) + (key & 7);
+      const int row = 8 * ((key >> 3) * (DQK / 4) + ck) + (key & 7);
       kd[row] = bg;
-      kd[row + BK * D / 4] = sm;
+      kd[row + BK * DQK / 4] = sm;
     }
     // V^T: keys 8j + p + 2i (i < 4) of a d are one row of core matrix (d / 8,
     // 2j + p), the k-order of the P.V step (a group's even keys first)
-    for (int u = tid; u < BK * D / 16; u += kThreads) {
-      const int cv = u % (D / 4), jp = u / (D / 4);
+    for (int u = tid; u < BK * DV / 16; u += kThreads) {
+      const int cv = u % (DV / 4), jp = u / (DV / 4);
       float4 x[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -610,44 +620,44 @@ flash_prepare_kv_kernel(const T* __restrict__ k, const T* __restrict__ v, char* 
         split(xs[dd][3], bg.w, sm.w);
         const int row = 8 * ((d >> 3) * (BK / 4) + jp) + (d & 7);
         vd[row] = bg;
-        vd[row + BK * D / 4] = sm;
+        vd[row + BK * DV / 4] = sm;
       }
     }
   } else {
     T* kd = reinterpret_cast<T*>(tile);  // (BK, LDK)
-    T* vd = reinterpret_cast<T*>(tile + C::kKs);  // (D, LDV)
+    T* vd = reinterpret_cast<T*>(tile + C::kKs);  // (DV, LDV)
     const T zero = __ushort_as_bfloat16(0);
-    for (int i = tid; i < BK * D; i += kThreads) {
-      const int key = i / D, d = i % D;
+    for (int i = tid; i < BK * DQK; i += kThreads) {
+      const int key = i / DQK, d = i % DQK;
       kd[key * LDK + d] = k0 + key < Sk ? kb[(k0 + key) * ks.s + d] : zero;
     }
-    for (int i = tid; i < BK * D; i += kThreads) {
+    for (int i = tid; i < BK * DV; i += kThreads) {
       const int key = i % BK, d = i / BK;
       vd[d * LDV + key] = k0 + key < Sk ? vb[(k0 + key) * vs.s + d] : zero;
     }
   }
 }
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 size_t scratch_bytes(int B, int Hk, int sk_valid) {
-  using C = Cfg<D, T>;
+  using C = Cfg<DQK, DV, T>;
   return (size_t)B * Hk * ((sk_valid + C::BK - 1) / C::BK) * C::kTile;
 }
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* tiles,
            const long long* st, int B, int H, int Hk, int Sq, int Sk, int sk_valid, int causal,
            float scale, cudaStream_t stream) {
-  using C = Cfg<D, T>;
+  using C = Cfg<DQK, DV, T>;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
   const int n_kv = (sk_valid + C::BK - 1) / C::BK;
-  flash_prepare_kv_kernel<D, T><<<dim3(n_kv, Hk, B), kThreads, 0, stream>>>(
+  flash_prepare_kv_kernel<DQK, DV, T><<<dim3(n_kv, Hk, B), kThreads, 0, stream>>>(
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<char*>(tiles), ks, vs, Hk,
       Sk, n_kv);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  auto kernel = flash_attention_fwd_kernel<D, T>;
+  auto kernel = flash_attention_fwd_kernel<DQK, DV, T>;
   if (C::kSmem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
     if (e != cudaSuccess) return (int)e;
@@ -660,52 +670,60 @@ int launch(const void* q, const void* k, const void* v, void* o, void* tiles,
   return (int)cudaGetLastError();
 }
 
-// f(Cfg's D and T as template arguments) for a head dim and type, or -1
+// f(Cfg's DQK, DV and T as template arguments) for a compiled pair of head
+// dims and a type, or -1
 template <typename F>
-long long dispatch(int D, int is_bf16, F f) {
+long long dispatch(int D, int DV, int is_bf16, F f) {
   auto by_d = [&](auto tag) -> long long {
-    switch (D) {
-      case 16: return f(std::integral_constant<int, 16>{}, tag);
-      case 32: return f(std::integral_constant<int, 32>{}, tag);
-      case 64: return f(std::integral_constant<int, 64>{}, tag);
-      case 128: return f(std::integral_constant<int, 128>{}, tag);
-      default: return -1;
-    }
+    using I16 = std::integral_constant<int, 16>;
+    using I32 = std::integral_constant<int, 32>;
+    using I64 = std::integral_constant<int, 64>;
+    using I128 = std::integral_constant<int, 128>;
+    using I192 = std::integral_constant<int, 192>;
+    if (D == 16 && DV == 16) return f(I16{}, I16{}, tag);
+    if (D == 32 && DV == 32) return f(I32{}, I32{}, tag);
+    if (D == 64 && DV == 64) return f(I64{}, I64{}, tag);
+    if (D == 128 && DV == 128) return f(I128{}, I128{}, tag);
+    if (D == 192 && DV == 128) return f(I192{}, I128{}, tag);
+    return -1;
   };
   return is_bf16 ? by_d(__nv_bfloat16{}) : by_d(float{});
 }
 
 }  // namespace
 
-// q: (B, Sq, H, D); k, v: (B, Sk, Hk, D); o: (B, Sq, H, D); all f32 (is_bf16 = 0)
-// or all bf16 (is_bf16 = 1), each addressed by its (batch, seq, head) strides in
-// elements, strides[3 * operand + axis] for operands q, k, v, o; the head dim is
-// contiguous, and every pointer and row (each stride times the element size) is
-// 16-byte aligned. D is 16, 32, 64 or 128; H is a multiple of Hk;
-// 1 <= sk_valid <= Sk. scratch: flash_attention_scratch_bytes(B, Hk, sk_valid,
-// D, is_bf16) bytes, 16-byte aligned, for the prepared KV tiles. Two kernels run
-// on the stream; returns cudaGetLastError() after the launches.
+// q: (B, Sq, H, D); k: (B, Sk, Hk, D); v: (B, Sk, Hk, DV); o: (B, Sq, H, DV); all
+// f32 (is_bf16 = 0) or all bf16 (is_bf16 = 1), each addressed by its (batch, seq,
+// head) strides in elements, strides[3 * operand + axis] for operands q, k, v, o;
+// the head dim is contiguous, and every pointer and row (each stride times the
+// element size) is 16-byte aligned. (D, DV) is (16, 16), (32, 32), (64, 64),
+// (128, 128) or (192, 128); H is a multiple of Hk; 1 <= sk_valid <= Sk. scratch:
+// flash_attention_scratch_bytes(B, Hk, sk_valid, D, DV, is_bf16) bytes, 16-byte
+// aligned, for the prepared KV tiles. Two kernels run on the stream; returns
+// cudaGetLastError() after the launches.
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                           void* scratch, long long scratch_bytes,
                                           const long long* strides, int B, int H, int Hk, int Sq,
-                                          int Sk, int D, int sk_valid, int causal, int is_bf16,
-                                          float scale, void* stream);
+                                          int Sk, int D, int DV, int sk_valid, int causal,
+                                          int is_bf16, float scale, void* stream);
 
-// The scratch bytes a launch needs, or -1 for a head dim the kernel lacks.
-extern "C" long long flash_attention_scratch_bytes(int B, int Hk, int sk_valid, int D,
+// The scratch bytes a launch needs, or -1 for a pair of head dims the kernel lacks.
+extern "C" long long flash_attention_scratch_bytes(int B, int Hk, int sk_valid, int D, int DV,
                                                    int is_bf16) {
-  return dispatch(D, is_bf16, [&](auto d, auto tag) -> long long {
-    return (long long)scratch_bytes<decltype(d)::value, decltype(tag)>(B, Hk, sk_valid);
+  return dispatch(D, DV, is_bf16, [&](auto d, auto dv, auto tag) -> long long {
+    return (long long)scratch_bytes<decltype(d)::value, decltype(dv)::value, decltype(tag)>(
+        B, Hk, sk_valid);
   });
 }
 
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
                                           void* scratch, long long scratch_bytes,
                                           const long long* strides, int B, int H, int Hk, int Sq,
-                                          int Sk, int D, int sk_valid, int causal, int is_bf16,
-                                          float scale, void* stream) {
-  if (B <= 0 || Hk <= 0 || H % Hk || Sq <= 0 || sk_valid < 1 || sk_valid > Sk ||
-      scratch_bytes < flash_attention_scratch_bytes(B, Hk, sk_valid, D, is_bf16))
+                                          int Sk, int D, int DV, int sk_valid, int causal,
+                                          int is_bf16, float scale, void* stream) {
+  const long long need = flash_attention_scratch_bytes(B, Hk, sk_valid, D, DV, is_bf16);
+  if (B <= 0 || Hk <= 0 || H % Hk || Sq <= 0 || sk_valid < 1 || sk_valid > Sk || need < 0 ||
+      scratch_bytes < need)
     return (int)cudaErrorInvalidValue;
   const int elem = is_bf16 ? 2 : 4;
   const void* ptrs[] = {q, k, v, o, scratch};
@@ -714,15 +732,15 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   for (int i = 0; i < 12; ++i)
     if (strides[i] * elem % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)dispatch(D, is_bf16, [&](auto d, auto tag) -> long long {
-    return launch<decltype(d)::value, decltype(tag)>(q, k, v, o, scratch, strides, B, H, Hk, Sq,
-                                                     Sk, sk_valid, causal, scale, s);
+  return (int)dispatch(D, DV, is_bf16, [&](auto d, auto dv, auto tag) -> long long {
+    return launch<decltype(d)::value, decltype(dv)::value, decltype(tag)>(
+        q, k, v, o, scratch, strides, B, H, Hk, Sq, Sk, sk_valid, causal, scale, s);
   });
 }
 
-// The dynamic shared memory, in bytes, that a launch at head dim D takes.
-extern "C" int flash_attention_smem_bytes(int D, int is_bf16) {
-  return (int)dispatch(D, is_bf16, [](auto d, auto tag) -> long long {
-    return (long long)Cfg<decltype(d)::value, decltype(tag)>::kSmem;
+// The dynamic shared memory, in bytes, that a launch at head dims (D, DV) takes.
+extern "C" int flash_attention_smem_bytes(int D, int DV, int is_bf16) {
+  return (int)dispatch(D, DV, is_bf16, [](auto d, auto dv, auto tag) -> long long {
+    return (long long)Cfg<decltype(d)::value, decltype(dv)::value, decltype(tag)>::kSmem;
   });
 }

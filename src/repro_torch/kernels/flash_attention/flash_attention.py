@@ -3,9 +3,10 @@
 Counterpart of ``repro.kernels.flash_attention.flash_attention``; the kernel
 is ``csrc/flash_attention.cu``. Online softmax in f32 over KV blocks, an
 optional causal mask (top-left aligned: query i sees keys 0..i), a tail mask
-at ``sk_valid``, and GQA by ``h // g`` on the flat head index. CUDA tensors
-go to the kernel; CPU tensors to the plain version below; any other device
-raises.
+at ``sk_valid``, and GQA by ``h // g`` on the flat head index. The value
+head may be narrower than the query and key heads (MLA: 192 over 128). CUDA
+tensors go to the kernel; CPU tensors to the plain version below; any other
+device raises.
 
 Two layouts are taken: the reference kernel's (B·H, S, D), and the model's
 (B, S, H, D), which the kernel reads in place through strides (``ops.py``).
@@ -20,9 +21,19 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernel is compiled for
+# the (q and k, v) head dims the kernel is compiled for: square, and MLA's
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 
 _lib_handle = None
+
+
+def kernel_block_k(d_qk: int, dtype) -> int:
+    """The keys of one KV tile of the kernel at this q/k head dim and dtype
+    (``Cfg::BK`` in csrc/flash_attention.cu): the plain version takes the
+    same ``block_k`` to round p and each block's P·V at the same points."""
+    if d_qk <= 64:
+        return 64
+    return 16 if dtype == torch.float32 and d_qk > 128 else 32
 
 
 def _heads_first(x):
@@ -80,27 +91,28 @@ def _lib():
         lib = build.load("flash_attention")
         lib.flash_attention_fwd_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p])
+            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
         lib.flash_attention_fwd_launch.restype = ctypes.c_int
-        lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 5
+        lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 6
         lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
 
 
 def _check(q, k, v, sk_valid):
-    """q, k, v as the kernel sees them: (B, Sq, H, D) and (B, Sk, Hk, D)."""
+    """q, k, v as the kernel sees them: (B, Sq, H, D), (B, Sk, Hk, D) and
+    (B, Sk, Hk, Dv), (D, Dv) one of HEAD_DIMS."""
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}, q {q.dtype} on {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"the kernel takes f32 or bf16, got {q.dtype}")
     b, sq, h, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"k and v must be (B, Sk, Hk, D) of one shape beside q {tuple(q.shape)}; "
-                         f"got {tuple(k.shape)}, {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
+    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k and v must be (B, Sk, Hk, D) and (B, Sk, Hk, Dv) beside q "
+                         f"{tuple(q.shape)}; got {tuple(k.shape)}, {tuple(v.shape)}")
+    if (d, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"head dims (q and k {d}, v {v.shape[3]}) are not one of {HEAD_DIMS}")
     if h % k.shape[2]:
         raise ValueError(f"{h} query heads are not a multiple of {k.shape[2]} KV heads")
     if sq == 0 or not 1 <= sk_valid <= k.shape[1]:
@@ -116,16 +128,17 @@ def _check(q, k, v, sk_valid):
 def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
     """Flash-attention forward.
 
-    q: (B·H, Sq, D); k, v: (B·Hk, Sk, D) -> (B·H, Sq, D), the reference's
-    layout; or q: (B, Sq, H, D); k, v: (B, Sk, Hk, D) -> (B, Sq, H, D),
-    read in place. f32 or bf16, D in HEAD_DIMS on the card; the output is in
-    q's dtype. Keys at positions >= ``sk_valid`` (default Sk) are masked. Sq
-    and Sk are any lengths: the kernel masks its ragged tiles itself.
+    q: (B·H, Sq, D); k: (B·Hk, Sk, D); v: (B·Hk, Sk, Dv) -> (B·H, Sq, Dv),
+    the reference's layout; or q: (B, Sq, H, D); k: (B, Sk, Hk, D); v:
+    (B, Sk, Hk, Dv) -> (B, Sq, H, Dv), read in place. f32 or bf16, (D, Dv)
+    in HEAD_DIMS on the card; the output is in q's dtype. Keys at positions
+    >= ``sk_valid`` (default Sk) are masked. Sq and Sk are any lengths: the
+    kernel masks its ragged tiles itself.
 
-    On the card the kernel's tiles are its own (128 query rows by 64 keys, 32
-    at D 128);
-    ``block_q`` and ``block_k`` are the plain version's blocks, as they were
-    the Pallas grid's, and change the result only by rounding.
+    On the card the kernel's tiles are its own (128 query rows by
+    ``kernel_block_k`` keys); ``block_q`` and ``block_k`` are the plain
+    version's blocks, as they were the Pallas grid's, and change the result
+    only by rounding.
     ``flash_attention_fwd.launches`` counts kernel launches.
 
     The output is not tracked by autograd, so this raises where q, k or v
@@ -151,18 +164,19 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     views = [t if t.dim() == 4 else t.unsqueeze(0).transpose(1, 2) for t in (q, k, v, o)]
     b, sq, h, d = views[0].shape
     _, sk, hk, _ = views[1].shape
+    dv = views[2].shape[3]
     sk_valid = sk if sk_valid is None else sk_valid
     _check(*views[:3], sk_valid)
     strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
     lib = _lib()
     is_bf16 = int(q.dtype == torch.bfloat16)
     # the KV tiles as the kernel prepares them: split, transposed, in its layout
-    n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, is_bf16)
+    n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, dv, is_bf16)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
-            strides, b, h, hk, sq, sk, d, sk_valid, int(causal), is_bf16, d**-0.5,
+            strides, b, h, hk, sq, sk, d, dv, sk_valid, int(causal), is_bf16, d**-0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")

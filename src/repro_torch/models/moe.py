@@ -1,6 +1,6 @@
-"""Mixture-of-Experts transformers: granite-moe (top-8 of 40, GQA), and the
-dense-first layers, shared experts and multi-token prediction that
-deepseek-v3 adds (counterpart of ``repro.models.moe``).
+"""Mixture-of-Experts transformers: granite-moe (top-8 of 40, GQA) and
+deepseek-v3 (MLA + 1 shared + 256 routed top-8 + dense-first layers + MTP)
+(counterpart of ``repro.models.moe``).
 
 Dispatch is sort-based with capacity (MegaBlocks-style dense buffers):
 assignments are stably sorted by expert, placed into an (E, C, D) buffer
@@ -9,14 +9,16 @@ run through the experts as batched products, and combined by router
 weight. The reference's expert-parallel dispatch (``moe_apply_ep``, a
 ``shard_map`` over a mesh) is the multi-card slice's (ROADMAP.md, queue 1);
 on one card ``_moe_ffn`` is ``moe_apply``, as the reference's is without a
-mesh. MLA attention (``cfg.mla``) is not ported yet either.
+mesh. With ``cfg.mla`` each layer's attention is ``models/mla.py``'s, and
+the cache holds its latents (c_kv, k_rope) in place of K and V.
 
 Layers are Python lists (``moe_layers``, ``dense_layers``) where the
 reference stacks them for ``lax.scan``; the KV cache keeps its stacked
-(L, B, S, Hk, Dh) layout. Attention is ``transformer.train_attention`` in
-the training forward and ``transformer.prefill_attention`` in the prefill,
-so both reach the flash kernel on the card; ``decode_step`` keeps the
-dense ``decode_attention``.
+(L, B, S, Hk, Dh) layout (MLA's: (L, B, S, KL) and (L, B, S, DR)).
+Attention is ``transformer.train_attention`` in the training forward and
+``transformer.prefill_attention`` in the prefill, so both reach the flash
+kernel on the card; ``decode_step`` keeps the dense ``decode_attention``
+(MLA: the absorbed ``mla_decode``).
 """
 
 from __future__ import annotations
@@ -29,14 +31,9 @@ from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamSpec
-
-
-def refuse_mla(cfg: ModelConfig):
-    if cfg.mla:
-        raise NotImplementedError("MLA attention (models/mla.py) is not ported yet "
-                                  "(ROADMAP.md, queue 1)")
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -133,14 +130,14 @@ def _moe_ffn(cfg: ModelConfig, p, xn):
 # experts and MTP)
 # ---------------------------------------------------------------------------
 def _attn_specs(cfg: ModelConfig):
-    refuse_mla(cfg)
-    return T.attn_specs(cfg)
+    return mla_mod.mla_specs(cfg) if cfg.mla else T.attn_specs(cfg)
 
 
 def _attn_apply(cfg: ModelConfig, p, xn, positions):
     """Causal self-attention of a training forward (the flash kernel's
     autograd entry on the card)."""
-    refuse_mla(cfg)
+    if cfg.mla:
+        return mla_mod.mla_attention(p, xn, cfg, positions)
     return T.attn_block(p, xn, cfg, positions)
 
 
@@ -236,23 +233,35 @@ def loss_fn(params, batch, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
-def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
-    refuse_mla(cfg)
-    s = T.cache_len(cfg, seq_len)
-    hk, dh = cfg.n_kv_heads, cfg.head_dim
-    n_moe = cfg.n_layers - cfg.first_k_dense
-    kv = ParamSpec((n_moe, batch, s, hk, dh), ("layers", None, None, "kv_heads", None),
-                   "zeros", cfg.dtype)
-    out = {"moe_k": kv, "moe_v": kv}
-    if cfg.first_k_dense:
-        kvd = ParamSpec((cfg.first_k_dense, batch, s, hk, dh),
-                        ("layers", None, None, "kv_heads", None), "zeros", cfg.dtype)
-        out.update({"dense_k": kvd, "dense_v": kvd})
-    return out
-
-
 # the layer groups in the order they run, each with its cache keys' prefix
 GROUPS = (("dense", "dense_layers"), ("moe", "moe_layers"))
+
+
+def _cache_names(cfg: ModelConfig):
+    """The two cache tensors of a layer group, after its prefix: MLA's
+    latents, or K and V."""
+    return ("ckv", "krope") if cfg.mla else ("k", "v")
+
+
+def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
+    """{"moe_k", "moe_v"} (and "dense_k", "dense_v"): (L, B, S, Hk, Dh); with
+    MLA {"moe_ckv", "moe_krope"} (and "dense_ckv", "dense_krope"): (L, B, S,
+    KL) and (L, B, S, DR)."""
+    s = T.cache_len(cfg, seq_len)
+    if cfg.mla:
+        tails = ((cfg.kv_lora_rank,), (cfg.rope_head_dim,))
+        axes = (None,)
+    else:
+        tails = ((cfg.n_kv_heads, cfg.head_dim),) * 2
+        axes = ("kv_heads", None)
+    out = {}
+    for prefix, n in (("moe", cfg.n_layers - cfg.first_k_dense), ("dense", cfg.first_k_dense)):
+        if prefix == "moe" or n:
+            for name, tail in zip(_cache_names(cfg), tails):
+                out[f"{prefix}_{name}"] = ParamSpec((n, batch, s, *tail),
+                                                    ("layers", None, None, *axes), "zeros",
+                                                    cfg.dtype)
+    return out
 
 
 def _serve_ffn(cfg: ModelConfig, lp, h):
@@ -267,29 +276,37 @@ def prefill(params, batch, cfg: ModelConfig):
 
     batch: {"tokens": (B, S) int}. Returns (last-position logits (B, 1, V),
     cache {"moe_k", "moe_v"} (and "dense_k", "dense_v"), each (L, B, S, Hk,
-    Dh), exactly ``cache_len(cfg, S)`` long).
+    Dh); with MLA {"moe_ckv", "moe_krope"} (and "dense_ckv",
+    "dense_krope"), (L, B, S, KL) and (L, B, S, DR); exactly
+    ``cache_len(cfg, S)`` long).
     """
-    refuse_mla(cfg)
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)
 
     def attend(lp, x):
-        q, k, v = T.qkv(lp["attn"], T.norm(cfg, lp["ln1"], x), cfg, positions)
+        xn = T.norm(cfg, lp["ln1"], x)
+        if cfg.mla:
+            o, (ckv, krope) = mla_mod.mla_attention(lp["attn"], xn, cfg, positions,
+                                                    return_cache=True,
+                                                    attention=T.prefill_attention)
+            return x + o, ckv, krope
+        q, k, v = T.qkv(lp["attn"], xn, cfg, positions)
         o = T.prefill_attention(q, k, v, cfg)
         return x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"]), k, v
 
+    n1, n2 = _cache_names(cfg)
     cache = {}
     for prefix, key in GROUPS:
         if key not in params:
             continue
-        ks, vs = [], []
+        c1s, c2s = [], []
         for lp in params[key]:
-            h, k, v = attend(lp, x)
+            h, c1, c2 = attend(lp, x)
             x = _serve_ffn(cfg, lp, h)
-            ks.append(k)
-            vs.append(v)
-        cache[f"{prefix}_k"], cache[f"{prefix}_v"] = torch.stack(ks), torch.stack(vs)
+            c1s.append(c1)
+            c2s.append(c2)
+        cache[f"{prefix}_{n1}"], cache[f"{prefix}_{n2}"] = torch.stack(c1s), torch.stack(c2s)
     x = T.norm(cfg, params["ln_f"], x)
     logits = L.lm_logits(params["embed"], x[:, -1:], cfg.vocab)
     w = T.cache_len(cfg, s)
@@ -300,30 +317,36 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """One decode step. tokens: (B, 1); pos: (B,) absolute positions; the
     write index is ``pos % S`` (rolling buffer). Returns (logits (B, 1, V),
     new cache)."""
-    refuse_mla(cfg)
     b = tokens.shape[0]
     x = L.embed(params["embed"], tokens).to(cfg.dtype)
     bidx = torch.arange(b, device=tokens.device)
 
-    def attn_decode(lp, x, kc, vc):
-        s_cache = kc.shape[1]
+    def attn_decode(lp, x, c1, c2):
+        xn = T.norm(cfg, lp["ln1"], x)
+        if cfg.mla:
+            o, c1, c2 = mla_mod.mla_decode(lp["attn"], xn, cfg, pos, c1, c2)
+            return x + o, c1, c2
+        s_cache = c1.shape[1]
         widx = (pos % s_cache).long()
-        q, k, v = T.qkv(lp["attn"], T.norm(cfg, lp["ln1"], x), cfg, pos[:, None])
-        kc = kc.index_put((bidx, widx), k[:, 0].to(kc.dtype))
-        vc = vc.index_put((bidx, widx), v[:, 0].to(vc.dtype))
-        o = attn.decode_attention(q, kc, vc, torch.clamp(pos + 1, max=s_cache))
-        return x + L.matmul(o.reshape(b, 1, -1), lp["attn"]["wo"]), kc, vc
+        q, k, v = T.qkv(lp["attn"], xn, cfg, pos[:, None])
+        c1 = c1.index_put((bidx, widx), k[:, 0].to(c1.dtype))
+        c2 = c2.index_put((bidx, widx), v[:, 0].to(c2.dtype))
+        o = attn.decode_attention(q, c1, c2, torch.clamp(pos + 1, max=s_cache))
+        return x + L.matmul(o.reshape(b, 1, -1), lp["attn"]["wo"]), c1, c2
 
+    n1, n2 = _cache_names(cfg)
     new_cache = dict(cache)
     for prefix, key in GROUPS:
         if key not in params:
             continue
-        ks, vs = [], []
+        c1s, c2s = [], []
         for i, lp in enumerate(params[key]):
-            h, kc, vc = attn_decode(lp, x, cache[f"{prefix}_k"][i], cache[f"{prefix}_v"][i])
+            h, c1, c2 = attn_decode(lp, x, cache[f"{prefix}_{n1}"][i],
+                                    cache[f"{prefix}_{n2}"][i])
             x = _serve_ffn(cfg, lp, h)
-            ks.append(kc)
-            vs.append(vc)
-        new_cache[f"{prefix}_k"], new_cache[f"{prefix}_v"] = torch.stack(ks), torch.stack(vs)
+            c1s.append(c1)
+            c2s.append(c2)
+        new_cache[f"{prefix}_{n1}"], new_cache[f"{prefix}_{n2}"] = (torch.stack(c1s),
+                                                                    torch.stack(c2s))
     x = T.norm(cfg, params["ln_f"], x)
     return L.lm_logits(params["embed"], x, cfg.vocab), new_cache

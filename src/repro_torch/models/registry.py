@@ -1,8 +1,8 @@
 """Model registry: family dispatch (counterpart of ``repro.models.registry``).
 
 Ported: ``dense`` and ``vlm`` (``models/transformer.py``) and ``moe``
-(``models/moe.py``) but its MLA attention. ``encdec``, ``ssm``, ``hybrid``
-and MLA are in ROADMAP.md, queue 1.
+(``models/moe.py``, with MLA attention from ``models/mla.py``). ``encdec``,
+``ssm`` and ``hybrid`` are in ROADMAP.md, queue 1.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ def get_api(cfg: ModelConfig) -> ModelAPI:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet (ROADMAP.md, queue 1)")
-    moe.refuse_mla(cfg)
     mod = _FAMILIES[cfg.family]
     return ModelAPI(
         cfg=cfg,

@@ -80,6 +80,42 @@ def test_plain_layouts_and_blocks_agree_with_oracle(shape):
     np.testing.assert_allclose(to_np(o), to_np(r), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_with_a_narrower_v_head_matches_reference_blockwise(causal):
+    """MLA's head pair at smoke width: q and k heads of 48 (nope 32 + rope 16)
+    beside v heads of 32, as MLA's prefill hands them over (v a strided slice
+    of the expanded latent). The plain version, on both layouts and with a
+    tail mask, against the reference's ``blockwise_attention`` (the function
+    MLA's prefill calls) and its oracle, within 1e-5."""
+    rng = np.random.default_rng(6)
+    b, sq, h, dqk, dv = 2, 40, 4, 48, 32
+    q = rng.standard_normal((b, sq, h, dqk)).astype(np.float32)
+    k = rng.standard_normal((b, sq, h, dqk)).astype(np.float32)
+    kv = rng.standard_normal((b, sq, h, 32 + dv)).astype(np.float32)
+    v = kv[..., 32:]
+    want = np.asarray(j_attn.blockwise_attention(q, k, v, causal=causal, block=8))
+    np.testing.assert_allclose(want, np.asarray(j_attn.reference_attention(q, k, v, causal=causal)),
+                               atol=1e-5, rtol=1e-5)
+    qt, kt, vt = torch.tensor(q), torch.tensor(k), torch.tensor(kv)[..., 32:]
+    o4 = fa.flash_attention_fwd(qt, kt, vt, causal=causal, block_k=16)
+    assert o4.shape == (b, sq, h, dv)
+    np.testing.assert_allclose(to_np(o4), want, atol=1e-5, rtol=1e-5)
+    o3 = fa.flash_attention_fwd(fa._heads_first(qt), fa._heads_first(kt), fa._heads_first(vt),
+                                causal=causal)
+    assert o3.shape == (b * h, sq, dv)
+    np.testing.assert_allclose(to_np(o3), to_np(fa._heads_first(o4)), atol=1e-5, rtol=1e-5)
+    o = fa.flash_attention_fwd(qt, kt, vt, sk_valid=sq - 9, causal=causal)
+    cut = np.asarray(j_attn.reference_attention(q, k[:, :sq - 9], v[:, :sq - 9], causal=causal))
+    np.testing.assert_allclose(to_np(o), cut, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(to_np(attention.blockwise_attention(qt, kt, vt, causal=causal)),
+                               want, atol=1e-5, rtol=1e-5)
+
+
+def test_kernel_block_k_follows_the_kernels_tiles():
+    assert [fa.kernel_block_k(d, torch.bfloat16) for d, _ in fa.HEAD_DIMS] == [64, 64, 64, 32, 32]
+    assert [fa.kernel_block_k(d, torch.float32) for d, _ in fa.HEAD_DIMS] == [64, 64, 64, 32, 16]
+
+
 def round_tf32(x):
     """f32 to the nearest tf32 (10 mantissa bits), ties away from zero, on the
     bit pattern: what ``cvt.rna.tf32.f32`` gives."""
@@ -218,8 +254,11 @@ def test_blockwise_attention_keeps_q_dtype():
 def test_cuda_tensors_reach_the_kernel(monkeypatch):
     """On a CUDA tensor the wrapper launches the kernel (mocked here: fake CUDA
     tensors, recording stand-ins for the library's ctypes functions) with the
-    strides of the (B, S, H, D) layout read in place and the scratch the library
-    asks for, and never the plain version."""
+    strides of the (B, S, H, D) layout read in place, both head dims (q and k,
+    then v) and the scratch the library asks for, and never the plain version.
+    MLA's pair (192, 128) reaches the entry with v a strided slice of the
+    expanded latent, read in place; a pair the kernel lacks, such as (48, 32),
+    raises."""
     calls, asked = [], []
 
     def fake_launch(*args):
@@ -251,21 +290,34 @@ def test_cuda_tensors_reach_the_kernel(monkeypatch):
                                     fa._heads_first(k).contiguous(),
                                     fa._heads_first(k).contiguous(), causal=False, sk_valid=31)
         assert o3.shape == (b * h, sq, d)
+        q192 = torch.empty(b, sq, h, 192, device="cuda")
+        kv = torch.empty(b, sk, h, 256, device="cuda")  # MLA's (nope k | v) per head
+        k192 = torch.empty(b, sk, h, 192, device="cuda")
+        o192 = flash_attention(q192, k192, kv.narrow(3, 128, 128), causal=True)
+        assert o192.shape == (b, sq, h, 128)
         q48 = torch.empty(b, sq, h, 48, device="cuda")
         k48 = torch.empty(b, sk, hk, 48, device="cuda")
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q48, k48, k48)
-    assert fa.flash_attention_fwd.launches == before + 2 and len(calls) == 2
-    assert asked == [(b, hk, sk, d, 0), (1, b * hk, 31, d, 0)]
-    assert all(len(c) == 18 for c in calls)
-    (_, _, _, _, _, n4, st4, *ints4, scale, stream), (_, _, _, _, _, n3, st3, *ints3, _, _) = calls
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q48, k48, k48.narrow(3, 0, 32))
+    assert fa.flash_attention_fwd.launches == before + 3 and len(calls) == 3
+    assert asked == [(b, hk, sk, d, d, 0), (1, b * hk, 31, d, d, 0), (b, h, sk, 192, 128, 0)]
+    assert all(len(c) == 19 for c in calls)
+    (_, _, _, _, _, n4, st4, *ints4, scale, stream), (_, _, _, _, _, n3, st3, *ints3, _, _), \
+        (_, _, _, _, _, _, st_mla, *ints_mla, scale_mla, _) = calls
     assert n4 == n3 == 4096
     assert isinstance(st4, ctypes.Array) and list(st4) == [
         sq * h * d, h * d, d, sk * hk * d, hk * d, d, sk * hk * d, hk * d, d, sq * h * d, h * d, d]
-    assert ints4 == [b, h, hk, sq, sk, d, sk, 1, 0] and stream == 7
+    assert ints4 == [b, h, hk, sq, sk, d, d, sk, 1, 0] and stream == 7
     assert scale == pytest.approx(d**-0.5)
     # (B·H, S, D) is read as B = 1 with the flat head index as H
-    assert list(st3)[1:3] == [d, sq * d] and ints3 == [1, b * h, b * hk, sq, sk, d, 31, 0, 0]
+    assert list(st3)[1:3] == [d, sq * d] and ints3 == [1, b * h, b * hk, sq, sk, d, d, 31, 0, 0]
+    # MLA: v's rows are 256 apart (the latent's nope k and v), the output's 128
+    assert list(st_mla) == [sq * h * 192, h * 192, 192, sk * h * 192, h * 192, 192,
+                            sk * h * 256, h * 256, 256, sq * h * 128, h * 128, 128]
+    assert ints_mla == [b, h, h, sq, sk, 192, 128, sk, 1, 0]
+    assert scale_mla == pytest.approx(192**-0.5)
 
 
 def test_other_devices_raise():

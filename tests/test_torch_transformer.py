@@ -180,8 +180,8 @@ def test_specs_and_materialize(kind):
 
 def test_registry_ports_only_the_dense_family():
     """The registry serves the families the port has (dense; vlm, which is the
-    dense module; moe without MLA) and refuses the rest, naming ROADMAP.md:
-    encdec, ssm, hybrid, and a moe config with ``mla=True``."""
+    dense module; moe, with MLA attention or without) and refuses the rest,
+    naming ROADMAP.md: encdec, ssm, hybrid."""
     _, ct = small_configs("serve_f32")
     api = registry.get_api(ct)
     assert api.cfg is ct and base.n_params(api.specs()) > 0
@@ -193,7 +193,11 @@ def test_registry_ports_only_the_dense_family():
 
     for fam in ("moe", "vlm"):
         assert base.n_params(registry.get_api(cfg(fam)).specs()) > 0
-    for c in (cfg("encdec"), cfg("ssm"), cfg("hybrid"), cfg("moe", mla=True)):
+    mla = cfg("moe", mla=True, q_lora_rank=4, kv_lora_rank=4, rope_head_dim=2, nope_head_dim=2,
+              v_head_dim=2)
+    assert "wkv_b" in registry.get_api(mla).specs()["moe_layers"][0]["attn"]
+    assert set(registry.get_api(mla).init_cache_specs(1, 4)) == {"moe_ckv", "moe_krope"}
+    for c in (cfg("encdec"), cfg("ssm"), cfg("hybrid")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.get_api(c)
 
