@@ -11,9 +11,11 @@ Phases, one JSON line each:
               of head dims
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serve and prefill paths' full-width shapes (flash attention also at
-              granite-moe-3b-a800m's, 24 heads over 8, and at deepseek-v3-671b's
-              MLA prefill, 128 heads with q and k 192 wide over v 128 wide, f32
-              and bf16, and a ragged MLA case) and at the CPU tests' shapes
+              granite-moe-3b-a800m's, 24 heads over 8, at deepseek-v3-671b's
+              MLA prefill, 128 heads with q and k 192 wide over v 128 wide, and
+              at whisper-medium's encoder (1500 frames) and cross-attention (416
+              queries over 1500 frames), both without the causal mask, f32 and
+              bf16, and a ragged MLA case) and at the CPU tests' shapes
               (quantize_pages by both entries: contiguous pages, and the store into
               the tier pools, every pool tensor exact)
   4. path     the tiered serve step on the card against the same step on the CPU,
@@ -32,7 +34,8 @@ Phases, one JSON line each:
               host's enqueue time, the least time the card could take (flash
               attention: on the 3xTF32 tensor cores, and on the CUDA cores beside
               it), a one-element op's time as the launch floor, and for flash
-              attention (tinyllama's shape in f32, granite's and MLA's in bf16)
+              attention (tinyllama's shape in f32, granite's, MLA's and
+              whisper's encoder and cross-attention in bf16)
               one PyTorch call that computes the same function; the
               store path's whole calls (the store with its pool copies, append,
               raro_step): device ms, host enqueue ms, and ms per call back to back
@@ -110,6 +113,25 @@ Phases, one JSON line each:
               decode step; (c) the flash kernel's autograd entry against the
               plain attention's autograd at MLA's shape (B 1, S 1024, H 128),
               f32 and bf16
+ 14. families the last three families at their published widths: whisper-medium
+              (encdec: 24 encoder and 24 decoder layers, d_model 1024, 16 heads of
+              64, 1500 frames), xlstm-125m (ssm: 12 layers, every 4th sLSTM) and
+              zamba2-2.7b (hybrid: 54 Mamba2 layers, a shared attention block
+              after every 9). (a) Each at its widths with its depth cut (whisper
+              2 + 2 layers, xlstm 4, zamba2 10: one shared-attention application
+              and a tail without) in f32: make_prefill over 2 x 64 tokens (and
+              1500 frames) and 8 make_serve_step steps on the card against the
+              CPU from the same state each step (logits, KV caches and every
+              recurrent state within 1e-3, greedy tokens equal), and one loss_fn
+              forward (1e-5 relative). (b) The main serving path at full width
+              and depth in bf16 (the recurrent states f32), batch 4: whisper over
+              1500 frames and a 416-token prompt, xlstm and zamba2 over 2048
+              tokens, then 32 make_serve_step steps: prefill ms, decode ms per
+              step, tokens/s, peak memory, flash launches (exactly 72 per whisper
+              prefill, 0 per decode step, 0 for xlstm and zamba2), host syncs of a
+              decode step, a profiled prefill (256 tokens for the recurrent
+              families, whose per-token work the host issues) and a profiled
+              decode step. Frames and tokens are drawn by numpy from --seed
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -137,7 +159,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import ops as port_ops  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
-    deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b)
+    deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b, whisper_medium, xlstm_125m,
+    zamba2_2_7b)
 from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -153,7 +176,8 @@ from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E40
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import attention as attn, base, moe, registry, transformer  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    attention as attn, base, encdec, hybrid, moe, registry, transformer, xlstm)
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.training import optim, train_step  # noqa: E402
@@ -178,6 +202,10 @@ TOL = 1e-5  # kernel against plain, both in f32 on the card
 # flash attention against its plain version: 1e-5 in f32; 2e-2 in bf16, where
 # both round p and each tile's P.V to bf16 but at other points of the sums
 FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# check_flash's bf16 atol is at most 2^-6 x the largest |plain output|, 2 to 4
+# bf16 ulps of it: the two part by one ulp of the output at most (9.8e-4 at
+# whisper's shapes, where |o| peaks near 0.2 and 2e-2 would be a tenth of it)
+FLASH_BF16_ATOL_OF_MAX = 2.0 ** -6
 LOGITS_TOL = 1e-3  # a step on the card against the same step on the CPU
 
 STEPS = 32  # decode steps of each full-width serve run: 4 pages committed per sequence
@@ -207,6 +235,15 @@ FLASH_MLA = (4, PROMPT, PROMPT, 128, 128, 192, True)
 # a ragged MLA case: Sq and Sk not multiples of the tiles, tail-masked on the
 # reference's (B·H, S, D) layout
 FLASH_MLA_RAGGED = (2, 300, 333, 8, 8, 192, True)
+# whisper-medium's prefill at batch 4, 16 heads of 64 (no GQA): the encoder's
+# self-attention over its 1500 frames, the decoder's causal self-attention over
+# a 416-token prompt, and its cross-attention from the prompt to the frames
+# (Sq != Sk); 1500 and 416 are not multiples of the 64-row tiles
+FLASH_WHISPER_ENC = (4, 1500, 1500, 16, 16, 64, False)
+FLASH_WHISPER_DEC = (4, 416, 416, 16, 16, 64, True)
+FLASH_WHISPER_CROSS = (4, 416, 1500, 16, 16, 64, False)
+WHISPER_FLASH = {"whisper_enc": FLASH_WHISPER_ENC, "whisper_dec": FLASH_WHISPER_DEC,
+                 "whisper_cross": FLASH_WHISPER_CROSS}
 # the autograd entry at MLA's shape (the flash kernel forward, the plain backward)
 FLASH_MLA_TRAIN = (1, 1024, 1024, 128, 128, 192, True)
 V_DIM = dict(HEAD_DIMS)  # the v head dim the kernel pairs with each q and k head dim
@@ -500,6 +537,8 @@ def check_flash(dev, full_only):
     cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
              ("granite", FLASH_GRANITE, torch.bfloat16), ("mla", FLASH_MLA, torch.float32),
              ("mla", FLASH_MLA, torch.bfloat16)]
+    cases += [(label, shape, dt) for label, shape in WHISPER_FLASH.items()
+              for dt in (torch.float32, torch.bfloat16)]
     if not full_only:
         cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
                   for dt in (torch.float32, torch.bfloat16)]
@@ -517,19 +556,23 @@ def check_flash(dev, full_only):
         refs = [flash_attention_fwd_plain(q, k, v, causal=causal, block_k=bk),
                 flash_attention_fwd_plain(*heads_first, sk_valid=sk_valid, causal=causal,
                                           block_k=bk)]
-        errs = {}
+        errs, atols = {}, {}
         for name, o, r in zip(("bshd", "bhsd_tail"), outs, refs):
             check(o.dtype == dt and o.shape == r.shape, f"{label} {name}: {o.dtype} {o.shape}")
-            torch.testing.assert_close(o.float(), r.float(), atol=FLASH_TOL[dt],
-                                       rtol=FLASH_TOL[dt], msg=lambda m: f"{label} {name}: {m}")
+            atol = FLASH_TOL[dt]
+            if dt == torch.bfloat16:
+                atol = min(atol, FLASH_BF16_ATOL_OF_MAX * float(r.float().abs().max()))
+            torch.testing.assert_close(o.float(), r.float(), atol=atol, rtol=FLASH_TOL[dt],
+                                       msg=lambda m: f"{label} {name}: {m}")
             errs[name] = float((o.float() - r.float()).abs().max())
+            atols[name] = atol
         dname = str(dt).replace("torch.", "")
         worst[dname] = max(worst.get(dname, 0.0), *errs.values())
-        if label in ("granite", "mla"):
+        if label in ("granite", "mla", *WHISPER_FLASH):
             worst[f"{label}_{dname}"] = max(errs.values())
         emit("kernels", kernel="flash_attention_fwd", shape=label,
              b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
-             sk_valid=sk_valid, tol=FLASH_TOL[dt], max_abs_err=errs)
+             sk_valid=sk_valid, atol=atols, rtol=FLASH_TOL[dt], max_abs_err=errs)
     return worst
 
 
@@ -686,12 +729,28 @@ class RecordLogits:
             setattr(self.module, name, fn)
 
 
-def pad_cache(cache, extra):
+def pad_cache(cache, cfg, batch, seq):
     """A prefill cache (exactly as long as the prompt; the reference decodes at
-    pos % S) lengthened by ``extra`` positions: zero values or codes, scale ones.
-    This caller's choice lets the decode steps follow the prompt."""
-    return {n: torch.cat([t, (torch.ones_like if n.endswith("scale") else torch.zeros_like)(
-        t[:, :, :extra])], dim=2) for n, t in cache.items()}
+    pos % S) lengthened to ``cfg``'s ``init_cache_specs(batch, seq)``: a leaf
+    whose spec is longer on one axis grows there, by zeros or, where the spec
+    initializes to ones (the scales), ones. This caller's choice lets the
+    decode steps follow the prompt. A leaf as long as its spec (a recurrent
+    state, whisper's cross-attention K and V) is kept."""
+    specs = base.tree_paths(registry.get_api(cfg).init_cache_specs(batch, seq))
+
+    def pad(path, t):
+        spec = specs[path]
+        grow = [i for i, (a, b) in enumerate(zip(t.shape, spec.shape)) if a != b]
+        if not grow:
+            return t
+        ax = grow[0]
+        check(t.dim() == len(spec.shape) and len(grow) == 1 and spec.shape[ax] > t.shape[ax],
+              f"cache {path}: {tuple(t.shape)} does not grow to {spec.shape}")
+        fill = t.new_ones if spec.init == "ones" else t.new_zeros
+        return torch.cat([t, fill((*t.shape[:ax], spec.shape[ax] - t.shape[ax],
+                                   *t.shape[ax + 1:]))], dim=ax)
+
+    return base.tree_unflatten(cache, [pad(n, t) for n, t in base.tree_paths(cache).items()])
 
 
 def same_tokens(tok_d, tok_c, logits_c):
@@ -721,7 +780,7 @@ def phase_prefill_path(dev, steps=8, n_layers=2, prompt=64, batch=4):
             tok_d, _ = prefill(p_dev, {"tokens": tokens.to(dev)})
         n = counts()
         check(n["flash_attention_fwd"] == n_layers, f"prefill launches {n}, want {n_layers}")
-        cache_c = pad_cache(cache_c, steps)
+        cache_c = pad_cache(cache_c, cfg, batch, prompt + steps)
         for t in range(steps + 1):
             lg_c, lg_d = rec.logits[-2], rec.logits[-1].cpu()
             torch.testing.assert_close(lg_d, lg_c, atol=LOGITS_TOL, rtol=0)
@@ -755,7 +814,7 @@ def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
                            device=dev)
     # warm-up (cuBLAS handles, the kernels' first load), outside the counted runs
     tok, cache = serve_step.make_prefill(cfg)(params, {"tokens": tokens[:, :128]})
-    serve_step.make_serve_step(cfg)(params, pad_cache(cache, 1), tok[:, None],
+    serve_step.make_serve_step(cfg)(params, pad_cache(cache, cfg, batch, 129), tok[:, None],
                                     torch.full((batch,), 128, dtype=torch.int32, device=dev))
     torch.cuda.synchronize()
     total = dict.fromkeys(COUNTERS, 0)
@@ -770,7 +829,7 @@ def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
             n_prefill = counts()
-            cache = pad_cache(cache, steps)
+            cache = pad_cache(cache, c, batch, prompt + steps)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for t in range(steps):
@@ -1095,13 +1154,16 @@ def phase_times(dev):
                                       library_ms=lib_ms)
     out["flash_granite"] = time_flash_bf16(rng, floor_ms, FLASH_GRANITE)
     out["flash_mla"] = time_flash_bf16(rng, floor_ms, FLASH_MLA)
+    for label, shape in WHISPER_FLASH.items():
+        out[f"flash_{label}"] = time_flash_bf16(rng, floor_ms, shape)
     return out
 
 
 def time_flash_bf16(rng, floor_ms, shape):
     """One launch at a model's shape in bf16 (granite-moe-3b-a800m's prefill
     and training forward; deepseek-v3-671b's MLA prefill, whose v head is
-    narrower), its plain version and PyTorch's fused attention."""
+    narrower; whisper-medium's encoder, decoder and cross-attention), its
+    plain version and PyTorch's fused attention."""
     b, sq, sk, h, hk, d, causal = shape
     q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.bfloat16, "cuda")
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
@@ -1512,7 +1574,7 @@ def moe_card_vs_cpu(dev, cfg, smi, k=MOE_CMP, phase="moe"):
             check(d <= LOGITS_TOL, f"prefill cache {name}: {d} (smallest router margin "
                                    f"{rm.smallest()})")
             worst[f"cache_{name}"] = d
-        cache_c = pad_cache(cache_c, k["steps"])
+        cache_c = pad_cache(cache_c, c, k["batch"], k["prompt"] + k["steps"])
         worst_logits = 0.0
         for t in range(k["steps"] + 1):
             lg_c, lg_d = rec.logits[-2], rec.logits[-1].cpu()
@@ -1574,6 +1636,36 @@ def moe_card_vs_cpu(dev, cfg, smi, k=MOE_CMP, phase="moe"):
     check(n_train["flash_attention_fwd"] == want, f"loss launches {n_train}, want {want}")
 
 
+def timed_serve(mod, cfg, params, prefill, step, data, prompt, steps):
+    """One counted serving run: the counts set to 0 and the peak memory reset
+    just before ``prefill(params, data)``, then ``steps`` greedy steps from
+    the padded cache. Returns the last tokens and cache, the prefill's and
+    the steps' seconds, the counts after the prefill and after the steps,
+    the peak memory, and every logits tensor (``mod``'s, by RecordLogits)."""
+    batch = data["tokens"].shape[0]
+    dev = data["tokens"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with RecordLogits(mod) as rec:
+        t0 = time.perf_counter()
+        tok, cache = prefill(params, data)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        n_prefill = counts()
+        cache = pad_cache(cache, cfg, batch, prompt + steps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(steps):
+            pos = torch.full((batch,), prompt + t, dtype=torch.int32, device=dev)
+            tok, cache = step(params, cache, tok[:, None], pos)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    return dict(tok=tok, cache=cache, prefill_s=prefill_s, decode_s=decode_s,
+                n_prefill=n_prefill, n=counts(), peak=torch.cuda.max_memory_allocated(),
+                logits=rec.logits)
+
+
 def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS, phase="moe"):
     """(b) make_prefill over ``batch`` random prompts at ``cfg``'s widths and
     depth in bf16 (the specs' dtypes: bf16, the router f32), then ``steps``
@@ -1592,33 +1684,17 @@ def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS, phase="moe
     prefill, step = serve_step.make_prefill(cfg), serve_step.make_serve_step(cfg)
     # warm-up (cuBLAS handles, the kernel's first load), outside the counted run
     tok, cache = prefill(params, {"tokens": tokens[:, :128]})
-    step(params, pad_cache(cache, 1), tok[:, None],
+    step(params, pad_cache(cache, cfg, batch, 129), tok[:, None],
          torch.full((batch,), 128, dtype=torch.int32, device=dev))
     del cache
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    with RecordLogits(moe) as rec:
-        t0 = time.perf_counter()
-        tok, cache = prefill(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        n_prefill = counts()
-        cache = pad_cache(cache, steps)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for t in range(steps):
-            pos = torch.full((batch,), prompt + t, dtype=torch.int32, device=dev)
-            tok, cache = step(params, cache, tok[:, None], pos)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-    n = counts()
-    peak = torch.cuda.max_memory_allocated()
+    r = timed_serve(moe, cfg, params, prefill, step, {"tokens": tokens}, prompt, steps)
+    tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
+    n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
     want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0, "quantize_pages": 0}
     check(n_prefill == want and n == want,
           f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
-    check(len(rec.logits) == steps + 1
-          and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
+    check(len(r["logits"]) == steps + 1
+          and bool(torch.stack([torch.isfinite(x).all() for x in r["logits"]]).all()),
           "non-finite logits")
     shapes = {n: sp.shape for n, sp in api.init_cache_specs(batch, prompt + steps).items()}
     check({n: tuple(c.shape) for n, c in cache.items()} == shapes
@@ -1672,6 +1748,207 @@ def phase_mla(dev, smi):
     entry, _ = autograd_entry_check(dev, smi, FLASH_MLA_TRAIN, "mla", "c_autograd_entry", 14)
     torch.cuda.empty_cache()
     return serve_launches, entry
+
+
+# --------------------------------------------------------------------------
+# the last three families: whisper-medium, xlstm-125m, zamba2-2.7b
+# --------------------------------------------------------------------------
+# arch -> (config, model module, (a)'s depth cut, (b)'s prompt length). (a)'s
+# cuts: whisper 2 encoder and 2 decoder layers; xlstm 4 layers (layer 3 is an
+# sLSTM); zamba2 10 layers (one shared-attention application after layer 9,
+# then a tail layer without). (b): whisper's 416-token prompt and 32 steps are
+# 448 positions, its published decoder context
+FAMILIES = {
+    "whisper-medium": (whisper_medium.CONFIG, encdec, dict(n_layers=2, n_enc_layers=2), 416),
+    "xlstm-125m": (xlstm_125m.CONFIG, xlstm, dict(n_layers=4), PROMPT),
+    "zamba2-2.7b": (zamba2_2_7b.CONFIG, hybrid, dict(n_layers=10), PROMPT),
+}
+FAM_CMP = dict(batch=2, prompt=64, steps=8)  # (a)
+FAM_BATCH, FAM_STEPS = 4, 32  # (b)
+FAM_PROFILE_PROMPT = 256  # (b)'s profiled prefill of xlstm and zamba2 (per-token host loops)
+
+
+def flash_per_prefill(cfg):
+    """Flash launches of one prefill: whisper's encoder layers, and its decoder
+    layers' self- and cross-attention; none for the recurrent families (zamba2's
+    windowed attention takes the blockwise attention)."""
+    return cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec" else 0
+
+
+def family_batch(cfg, rng, batch, prompt, labels=False):
+    """Tokens (and labels) drawn by numpy, and for whisper the encoder's
+    frames (B, enc_len, d_model), f32 as the stub frontend hands them over."""
+    out = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt)).astype(np.int32))}
+    if labels:
+        out["labels"] = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt))
+                                         .astype(np.int32))
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal((batch, cfg.enc_len, cfg.d_model),
+                                                             dtype=np.float32))
+    return out
+
+
+def tree_errs(a, b):
+    """{path: max |a - b|} over the leaves of two caches of one structure
+    (nested recurrent states too)."""
+    fa = base.tree_paths(a)
+    return {k: float((fa[k].cpu().float() - v.float()).abs().max())
+            for k, v in base.tree_paths(b).items()}
+
+
+def families_card_vs_cpu(dev, smi, arch, seed):
+    """(a) make_prefill and FAM_CMP["steps"] make_serve_step steps of ``arch``
+    cut by its FAMILIES depth at its widths in f32, on the card and on the CPU
+    from the same state each step: logits and every leaf of the prefill's and
+    each step's cache within LOGITS_TOL, the greedy tokens equal (but in rows
+    whose two best logits on the CPU lie within it); then one loss_fn forward
+    from the same parameters and batch, within TRAIN_TOL's 1e-5 relative."""
+    cfg, mod, cut, _ = FAMILIES[arch]
+    c = cfg.with_(**cut, dtype=torch.float32)
+    k = FAM_CMP
+    p_cpu = numpy_params(c, seed)
+    p_dev = base.tree_map(lambda t: t.to(dev), p_cpu)
+    rng = np.random.default_rng(seed)
+    batch = family_batch(c, rng, k["batch"], k["prompt"])
+    prefill, step = serve_step.make_prefill(c), serve_step.make_serve_step(c)
+    worst, near_ties = {}, 0
+
+    def held(errs, when):
+        for name, e in errs.items():
+            check(e <= LOGITS_TOL, f"{arch} {when} cache {name}: {e}")
+            worst[name] = max(worst.get(name, 0.0), e)
+
+    with RecordLogits(mod) as rec:
+        tok_c, cache_c = prefill(p_cpu, batch)
+        reset_counts()
+        tok_d, cache_d = prefill(p_dev, {n: v.to(dev) for n, v in batch.items()})
+        torch.cuda.synchronize()
+        n_prefill = counts()
+        held(tree_errs(cache_d, cache_c), "prefill")
+        cache_c = pad_cache(cache_c, c, k["batch"], k["prompt"] + k["steps"])
+        worst_logits = 0.0
+        for t in range(k["steps"] + 1):
+            lg_c, lg_d = rec.logits[-2], rec.logits[-1].cpu()
+            d = float((lg_d - lg_c).abs().max())
+            check(d <= LOGITS_TOL, f"{arch} logits at step {t}: {d}")
+            worst_logits = max(worst_logits, d)
+            ok, ties = same_tokens(tok_d, tok_c, lg_c)
+            check(ok, f"{arch} greedy tokens differ at step {t}")
+            near_ties += ties
+            if t == k["steps"]:
+                break
+            pos = torch.full((k["batch"],), k["prompt"] + t, dtype=torch.int32)
+            nxt_c, next_c = step(p_cpu, cache_c, tok_c[:, None], pos)
+            tok_d, next_d = step(p_dev, base.tree_map(lambda v: v.to(dev), cache_c),
+                                 tok_c[:, None].to(dev), pos.to(dev))
+            held(tree_errs(next_d, next_c), f"step {t}")
+            tok_c, cache_c = nxt_c, next_c
+    n_steps = counts()
+
+    train = family_batch(c, rng, k["batch"], k["prompt"], labels=True)
+    loss_fn = registry.get_api(c).loss_fn
+    reset_counts()
+    with torch.no_grad():
+        l_d = loss_fn(p_dev, {n: v.to(dev) for n, v in train.items()})
+        torch.cuda.synchronize()
+        n_loss = counts()
+        l_c = loss_fn(p_cpu, train)
+    loss_err = abs(float(l_d) - float(l_c)) / abs(float(l_c))
+    emit("families", part="a_card_vs_cpu", nvidia_smi=smi, arch=arch, cut=cut,
+         n_layers=c.n_layers, n_enc_layers=c.n_enc_layers, d_model=c.d_model,
+         params=base.n_params(registry.get_api(c).specs()), dtype="float32", tf32=False,
+         batch=k["batch"], prompt=k["prompt"], steps=k["steps"], tol=LOGITS_TOL,
+         logits_max_abs_err=worst_logits, cache_max_abs_err=worst, near_ties=near_ties,
+         loss=float(l_c), loss_rel_err=loss_err, loss_tol=TRAIN_TOL["loss"],
+         launches_prefill=n_prefill, launches_loss=n_loss)
+    check(loss_err <= TRAIN_TOL["loss"], f"{arch} loss: card against CPU {loss_err}")
+    want = flash_per_prefill(c)
+    check(n_prefill["flash_attention_fwd"] == want and n_steps == n_prefill
+          and n_loss["flash_attention_fwd"] == want,
+          f"{arch} launches {n_prefill} in the prefill, {n_steps} after the steps, {n_loss} "
+          f"in the loss; want {want} flash launches in each pass and none in a step")
+
+
+def families_serve(dev, smi, arch, seed, batch=FAM_BATCH, steps=FAM_STEPS):
+    """(b) make_prefill at ``arch``'s published widths and depth in bf16 (the
+    specs' dtypes: the recurrent states, gates and Mamba2's decay parameters
+    f32), then ``steps`` make_serve_step steps from the padded cache. The
+    counts are set to 0 just before the run and read just after the prefill
+    and after the steps. Then the host syncs of one decode step, a profiled
+    prefill and a profiled decode step. Returns the run's flash launches."""
+    cfg, mod, _, prompt = FAMILIES[arch]
+    api = registry.get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0), device=dev)
+    init_peak = torch.cuda.max_memory_allocated()
+    data = {n: v.to(dev) for n, v in
+            family_batch(cfg, np.random.default_rng(seed), batch, prompt).items()}
+    prefill, step = serve_step.make_prefill(cfg), serve_step.make_serve_step(cfg)
+    # warm-up (cuBLAS handles, the kernel's first load), outside the counted run
+    short = {**data, "tokens": data["tokens"][:, :16]}
+    tok, cache = prefill(params, short)
+    step(params, pad_cache(cache, cfg, batch, 17), tok[:, None],
+         torch.full((batch,), 16, dtype=torch.int32, device=dev))
+    del cache
+    r = timed_serve(mod, cfg, params, prefill, step, data, prompt, steps)
+    tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
+    n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
+    want = {"flash_attention_fwd": flash_per_prefill(cfg), "tiered_decode_partial": 0,
+            "quantize_pages": 0}
+    check(n_prefill == want and n == want,
+          f"{arch} launches {n_prefill} in the prefill and {n} in the run, want {want}")
+    check(len(r["logits"]) == steps + 1
+          and bool(torch.stack([torch.isfinite(x).all() for x in r["logits"]]).all()),
+          f"{arch} non-finite logits")
+    specs = {n: (sp.shape, sp.dtype) for n, sp in
+             base.tree_paths(api.init_cache_specs(batch, prompt + steps)).items()}
+    got = {n: (tuple(t.shape), t.dtype) for n, t in base.tree_paths(cache).items()}
+    check(got == specs, f"{arch} cache {got}, want {specs}")
+    pos = torch.full((batch,), prompt + steps, dtype=torch.int32, device=dev)
+    (_, _), syncs = host_syncs(lambda: step(params, cache, tok[:, None], pos))
+    emit("families", part="b_serve", nvidia_smi=smi, arch=arch, family=cfg.family,
+         n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model,
+         dtype="bfloat16", params=base.n_params(api.specs()), batch=batch, prompt=prompt,
+         enc_len=cfg.enc_len if cfg.family == "encdec" else None, steps=steps,
+         prefill_ms=prefill_s * 1e3, prompt_tokens_per_s=batch * prompt / prefill_s,
+         decode_ms_per_step=decode_s * 1e3 / steps, decode_tokens_per_s=batch * steps / decode_s,
+         init_max_memory_allocated=init_peak, max_memory_allocated=peak,
+         launches_prefill=n_prefill, launches=n,
+         flash_launches_per_decode_step=(n["flash_attention_fwd"]
+                                         - n_prefill["flash_attention_fwd"]) / steps,
+         host_syncs_per_decode_step=len(syncs), host_syncs_by_line=dict(Counter(syncs)))
+    # a profiled prefill: whole for whisper; for the recurrent families over the
+    # first FAM_PROFILE_PROMPT tokens (every token costs the same host-issued step)
+    n_tok = prompt if cfg.family == "encdec" else FAM_PROFILE_PROMPT
+    part = {**data, "tokens": data["tokens"][:, :n_tok]}
+    wall_ms, device_ms, cpu_ms = profiled(lambda: prefill(params, part))
+    busy = sum(device_ms.values())
+    emit("families", part="b_profile_prefill", nvidia_smi=smi, arch=arch, batch=batch,
+         prompt=n_tok, wall_ms=wall_ms, device_busy_ms=busy or None,
+         device_busy_share=busy / wall_ms if busy else None,
+         top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
+    wall_ms, device_ms, cpu_ms = profiled(lambda: step(params, cache, tok[:, None], pos))
+    busy = sum(device_ms.values())
+    emit("families", part="b_profile_decode", nvidia_smi=smi, arch=arch, batch=batch,
+         cache_len=prompt + steps, wall_ms=wall_ms, device_busy_ms=busy or None,
+         device_busy_share=busy / wall_ms if busy else None,
+         top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
+    return n["flash_attention_fwd"]
+
+
+def phase_families(dev, smi, seed):
+    """whisper-medium, xlstm-125m and zamba2-2.7b on the card (see the module
+    docstring, phase 14): (a) card against CPU in f32 at a cut depth, (b) the
+    main serving path at full width and depth in bf16. Returns (b)'s flash
+    launches by arch."""
+    for arch in FAMILIES:
+        families_card_vs_cpu(dev, smi, arch, seed)
+        torch.cuda.empty_cache()
+    launches = {}
+    for arch in FAMILIES:
+        launches[arch] = families_serve(dev, smi, arch, seed)
+        torch.cuda.empty_cache()
+    return launches
 
 
 SSD_REQUESTS = 100_000  # quickstart's default
@@ -2033,8 +2310,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile, train, moe, mla, ssd or "
-                         "sweep phase)")
+                         "(no path, serve, prefill, times, profile, train, moe, mla, families, "
+                         "ssd or sweep phase)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="numpy seed of the families phase's frames and tokens")
     a = ap.parse_args()
 
     smi = phase_device()
@@ -2058,13 +2337,15 @@ def main():
         train_launches, train_attention = phase_train(dev, cfg, smi)
         moe_launches = phase_moe(dev, smi)
         mla_launches, mla_entry = phase_mla(dev, smi)
+        family_launches = phase_families(dev, smi, a.seed)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
-        # prefill (bf16)
+        # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
-                   **moe_launches, "mla_prefill": mla_launches}
+                   **moe_launches, "mla_prefill": mla_launches,
+                   "whisper_prefill": family_launches["whisper-medium"]}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
@@ -2075,7 +2356,10 @@ def main():
                 dt: flash_err[f"granite_{dt}"] for dt in ("float32", "bfloat16")}),
             mla_bf16=dict(**times["flash_mla"], max_abs_err={
                 dt: flash_err[f"mla_{dt}"] for dt in ("float32", "bfloat16")},
-                autograd_entry_max_abs_err={dt: r["max_abs_err"] for dt, r in mla_entry.items()}))}
+                autograd_entry_max_abs_err={dt: r["max_abs_err"] for dt, r in mla_entry.items()}),
+            **{f"{label}_bf16": dict(**times[f"flash_{label}"], max_abs_err={
+                dt: flash_err[f"{label}_{dt}"] for dt in ("float32", "bfloat16")})
+               for label in WHISPER_FLASH})}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models.base import tree_paths
 
 
 def _items(tree):
@@ -32,17 +33,6 @@ def _items(tree):
     if isinstance(tree, (list, tuple)):
         return ((str(i), v) for i, v in enumerate(tree))
     return None
-
-
-def _flatten(tree, prefix=""):
-    """{dotted path: leaf} of a tree of dicts, NamedTuples, lists and tuples."""
-    items = _items(tree)
-    if items is None:
-        return {prefix.rstrip("."): tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}{k}."))
-    return out
 
 
 def _rebuild(tree, leaf, prefix=""):
@@ -79,7 +69,7 @@ def save(path: str | Path, tree, *, step: int, extra: dict | None = None,
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
 
-    flat = _flatten(tree)
+    flat = tree_paths(tree)
     host = {k: _to_host(v) for k, v in flat.items()}
     manifest = {
         "step": step,
@@ -111,7 +101,7 @@ def restore(path: str | Path, like_tree, *, device=None):
     path = Path(path)
     manifest = json.loads((path / "manifest.json").read_text())
     with np.load(path / "arrays.npz") as data:
-        missing = [k for k in _flatten(like_tree) if k not in data.files]
+        missing = [k for k in tree_paths(like_tree) if k not in data.files]
         if missing:
             raise ValueError(f"checkpoint missing leaves: {missing[:5]}...")
 

@@ -4,10 +4,11 @@ The ``*_from_numpy`` functions take numpy arrays (the caller does the
 ``np.asarray`` on the JAX side) and the ``*_to_numpy`` functions give them,
 so this module needs no JAX. The two packages lay out a model's layers
 differently: the reference stacks every leaf of a layer group (``layers``;
-for MoE ``moe_layers`` and ``dense_layers``) on a leading axis, the port
+for MoE ``moe_layers`` and ``dense_layers``; for whisper ``enc_layers`` and
+``dec_layers``; for zamba2 ``mamba_layers``) on a leading axis, the port
 keeps a list of per-layer dicts; ``stack_layers`` and ``unstack_layers``
-turn one into the other. Everything else (MoE's ``mtp`` block among it) is
-carried as it is.
+turn one into the other. Everything else (MoE's ``mtp`` block and zamba2's
+``shared`` block among it) is carried as it is.
 """
 
 from __future__ import annotations
@@ -41,13 +42,15 @@ def _tree(x, device):
 def layer_depths(cfg) -> dict:
     """The number of layers in each stacked group of ``cfg``'s parameter tree."""
     return {"layers": cfg.n_layers, "moe_layers": cfg.n_layers - cfg.first_k_dense,
-            "dense_layers": cfg.first_k_dense}
+            "dense_layers": cfg.first_k_dense, "enc_layers": cfg.n_enc_layers,
+            "dec_layers": cfg.n_layers, "mamba_layers": cfg.n_layers}
 
 
 def params_from_numpy(tree, cfg, device=None):
-    """The reference's parameter tree ({"embed", "layers", "ln_f"}, or for MoE
-    "moe_layers", "dense_layers" and "mtp"; every leaf of a layer group
-    stacked on a leading axis) -> the port's tree, in which each layer group
+    """The reference's parameter tree ({"embed", "layers", "ln_f"}, or the
+    other layer groups of LAYER_GROUPS and the unstacked "mtp" and "shared";
+    every leaf of a layer group stacked on a leading axis) -> the port's
+    tree, in which each layer group
     is a list of per-layer dicts (views of one stacked tensor per leaf).
     Weight orientation is the same in both (``x @ W``), so nothing is
     transposed."""
@@ -62,7 +65,8 @@ def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-LAYER_GROUPS = ("layers", "moe_layers", "dense_layers")
+LAYER_GROUPS = ("layers", "moe_layers", "dense_layers", "enc_layers", "dec_layers",
+                "mamba_layers")
 
 
 def _stack(layers):
@@ -82,8 +86,8 @@ def _unstack(sub, n):
 def stack_layers(tree):
     """The port's layout -> the reference's: in every dict of ``tree`` (a
     parameter tree, an ``OptState``, or tuples of them), a layer group's list
-    of per-layer dicts (``layers``, ``moe_layers``, ``dense_layers``) becomes
-    one dict of tensors stacked on a leading axis."""
+    of per-layer dicts (a key of LAYER_GROUPS) becomes one dict of tensors
+    stacked on a leading axis."""
     if isinstance(tree, dict):
         return {k: _stack(v) if k in LAYER_GROUPS and isinstance(v, list) else stack_layers(v)
                 for k, v in tree.items()}
@@ -132,8 +136,10 @@ def cache_from_numpy(cache, device=None) -> dict:
     """The reference's KV cache with numpy leaves -> the port's, every key and
     dtype kept: the dense family's {"k", "v"} of (L, B, S, Hk, Dh), and at
     kv_bits < 16 the int8 codes with {"k_scale", "v_scale"} f32 scales; MoE's
-    {"moe_k", "moe_v"} and, with dense-first layers, {"dense_k", "dense_v"}.
-    The port keeps the reference's stacked layout for caches."""
+    {"moe_k", "moe_v"} and, with dense-first layers, {"dense_k", "dense_v"};
+    whisper's {"k", "v", "xk", "xv"}; the recurrent families' nested states
+    (xlstm's {"mlstm": {...}, "slstm": {...}}, zamba2's {"mamba": {...},
+    "k", "v"}). The port keeps the reference's stacked layout for caches."""
     return _tree(dict(cache), resolve_device(device))
 
 

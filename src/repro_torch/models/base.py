@@ -50,6 +50,23 @@ def tree_leaves(tree) -> list:
     return out
 
 
+def tree_paths(tree, prefix: str = "") -> dict:
+    """{dotted path: leaf} of a tree of dicts, NamedTuples, lists and tuples,
+    in ``tree_leaves`` order ("layers.0.attn.wq"; a checkpoint's array keys)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif hasattr(tree, "_asdict"):
+        items = tree._asdict().items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix.rstrip("."): tree}
+    out = {}
+    for k, v in items:
+        out.update(tree_paths(v, f"{prefix}{k}."))
+    return out
+
+
 def tree_unflatten(like, leaves):
     """``like``'s structure with its leaves replaced, in order, by ``leaves``."""
     it = iter(leaves)

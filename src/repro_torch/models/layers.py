@@ -1,4 +1,5 @@
-"""Shared layer primitives: norms, rotary embeddings, MLPs, embeddings.
+"""Shared layer primitives: norms, rotary and sinusoidal positions, MLPs,
+embeddings.
 
 Counterpart of ``repro.models.layers``. Parameters are dicts of tensors in
 the reference's layout (``x @ W``). Mixed dtypes follow JAX's promotion:
@@ -8,6 +9,9 @@ product, so :func:`matmul` casts both sides to the promoted dtype first.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -71,6 +75,22 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoidal_freqs(d: int, device: torch.device):
+    """The reference's float64 numpy frequencies, rounded to f32 once (as JAX
+    takes a float64 array without x64) and kept on ``device``, so that a
+    decode step copies nothing from the host."""
+    half = d // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    return torch.tensor(freqs, dtype=torch.float32, device=device)
+
+
+def sinusoidal(positions, d: int):
+    """positions: (...,) int -> (..., d) f32: sin of each angle, then cos."""
+    ang = positions[..., None].float() * _sinusoidal_freqs(d, positions.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -132,6 +152,16 @@ def _token_xent(logits, labels, ignore: int = -1):
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, lab[..., None])[..., 0]
     return (lse - ll) * mask, mask
+
+
+def remat(on: bool, fn, *args):
+    """``fn(*args)`` (one layer); with ``on`` (a config's ``remat``) it keeps
+    only its inputs and recomputes the rest in the backward (``checkpoint``,
+    where the reference has ``jax.checkpoint``). No randomness inside, so no
+    RNG state to keep."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int):

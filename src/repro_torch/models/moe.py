@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
@@ -181,15 +180,6 @@ def _dense_layer(cfg: ModelConfig, lp, x, positions):
     return h + L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), cfg.act)
 
 
-def _layer(cfg: ModelConfig, fn, *args):
-    """``fn(*args)``, with ``cfg.remat`` keeping only its inputs and
-    recomputing the rest in the backward (``checkpoint``, where the reference
-    has ``jax.checkpoint``); no randomness inside, so no RNG state to keep."""
-    if cfg.remat:
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
-    return fn(*args)
-
-
 def forward(params, batch, cfg: ModelConfig):
     """Returns (hidden (B, S, D), aux_loss)."""
     x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
@@ -204,10 +194,10 @@ def forward(params, batch, cfg: ModelConfig):
         return h + y, aux + a
 
     for lp in params.get("dense_layers", ()):
-        x = _layer(cfg, dense_body, x, lp)
+        x = L.remat(cfg.remat, dense_body, x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["moe_layers"]:
-        x, aux = _layer(cfg, moe_body, x, aux, lp)
+        x, aux = L.remat(cfg.remat, moe_body, x, aux, lp)
     return T.norm(cfg, params["ln_f"], x), aux
 
 

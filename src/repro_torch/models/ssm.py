@@ -1,0 +1,273 @@
+"""Recurrent sequence mixers: xLSTM (mLSTM + sLSTM blocks) and Mamba2
+(counterpart of ``repro.models.ssm``).
+
+Where the reference runs each recurrence as a ``lax.scan`` over the
+sequence, the port runs a Python loop over time. The elementwise work that
+does not depend on the carry (the f32 casts, mLSTM's log forget gate and
+scaled keys, Mamba2's decay ``exp(a·dt)`` and ``dt·x``) is computed for every
+step at once before the loop: the same elementwise operations on the same
+values, so the same results. Only the carry's update runs per step, each
+step's output is kept in a list and stacked once. Decode is one step of the
+same loop from the carried state; there is no KV cache.
+
+``jax.nn.softplus`` is ``logaddexp(x, 0)``; ``_softplus`` computes it so
+(``F.softplus`` takes a threshold shortcut and rounds otherwise). The scan's
+outputs are rounded to ``x``'s dtype before the per-head group norm, as in
+the reference, so in bf16 that norm runs in bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.base import ParamSpec
+
+
+def _softplus(x):
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _group_norm(y, heads: int):
+    """Per-head normalization of y (B, S, C) over C // heads channels: the
+    population variance (``jnp.var``), eps 1e-6, in y's dtype."""
+    b, s, c = y.shape
+    y = y.reshape(b, s, heads, c // heads)
+    mu = y.mean(-1, keepdim=True)
+    var = torch.var(y, dim=-1, keepdim=True, correction=0)
+    return ((y - mu) * torch.rsqrt(var + 1e-6)).reshape(b, s, c)
+
+
+def _causal_depthwise_conv(x, w, state=None):
+    """x: (B, S, C); w: (K, C) depthwise causal. state: (B, K-1, C) carry-in.
+
+    Returns (y (B, S, C), new_state (B, K-1, C)). The K taps are summed in
+    order from a zero start, as Python's ``sum`` does in the reference."""
+    k = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
+    return y, xp[:, -(k - 1):] if k > 1 else state
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block)
+# ---------------------------------------------------------------------------
+def mlstm_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.expand * d
+    h = cfg.n_heads
+    return {
+        "ln": L.rmsnorm_specs(d),
+        "w_up": ParamSpec((d, 2 * di), ("embed", "ff"), "scaled"),
+        "conv": ParamSpec((cfg.d_conv, di), ("conv", None), "normal"),
+        "wq": ParamSpec((di, di), ("ff", None), "scaled"),
+        "wk": ParamSpec((di, di), ("ff", None), "scaled"),
+        "wv": ParamSpec((di, di), ("ff", None), "scaled"),
+        "w_if": ParamSpec((d, 2 * h), ("embed", None), "scaled", torch.float32),
+        "b_if": ParamSpec((2 * h,), (None,), "zeros", torch.float32),
+        "gn": ParamSpec((di,), ("ff",), "ones"),
+        "w_down": ParamSpec((di, d), ("ff", "embed"), "scaled"),
+    }
+
+
+def mlstm_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    di = cfg.expand * cfg.d_model
+    h = cfg.n_heads
+    dh = di // h
+    return {
+        "C": ParamSpec((batch, h, dh, dh), (None, "heads", None, None), "zeros", torch.float32),
+        "n": ParamSpec((batch, h, dh), (None, "heads", None), "zeros", torch.float32),
+        "m": ParamSpec((batch, h), (None, "heads"), "zeros", torch.float32),
+        "conv": ParamSpec((batch, cfg.d_conv - 1, di), (None, None, "ff"), "zeros", cfg.dtype),
+    }
+
+
+def _mlstm_scan(q32, k_s, v32, i_raw, log_f, C, n, m):
+    """The mLSTM recurrence over S steps. q32, v32: (B, S, H, Dh) f32; k_s the
+    f32 keys times Dh^-0.5; i_raw, log_f: (B, S, H). Returns (h (B, S, H,
+    Dh) f32, (C, n, m)). Each step's inputs are views taken before the loop,
+    shaped for their broadcasts, so that a step issues only its arithmetic."""
+    hs = []
+    q_steps = q32.transpose(0, 1).contiguous()  # each step's q a contiguous (B, H, Dh)
+    steps = zip(q_steps[..., None].unbind(0), k_s.unbind(1), k_s[:, :, :, None, :].unbind(1),
+                v32[..., None].unbind(1), i_raw.unbind(1), log_f.unbind(1))
+    for q_t, k_t, k_row, v_col, i_t, lf_t in steps:
+        lf_m = lf_t + m
+        m_new = torch.maximum(lf_m, i_t)
+        i_g = torch.exp(i_t - m_new)[..., None]
+        f_g = torch.exp(lf_m - m_new)[..., None]
+        C = f_g[..., None] * C + i_g[..., None] * (v_col * k_row)
+        n = f_g * n + i_g * k_t
+        denom = torch.clamp(torch.abs(n[..., None, :] @ q_t), min=1.0)
+        hs.append((C @ q_t) / denom)
+        m = m_new
+    return torch.stack(hs, dim=1)[..., 0], (C, n, m)
+
+
+def mlstm_apply(p, x, cfg: ModelConfig, state=None):
+    """x: (B, S, D). Returns (y, new_state {"C", "n", "m", "conv"})."""
+    b, s, d = x.shape
+    di = cfg.expand * d
+    h = cfg.n_heads
+    dh = di // h
+    xn = L.rmsnorm(p["ln"], x)
+    up = L.matmul(xn, p["w_up"])
+    u, z = up[..., :di], up[..., di:]
+    uc, conv_new = _causal_depthwise_conv(u, p["conv"], None if state is None else state["conv"])
+    uc = F.silu(uc)
+    q = L.matmul(uc, p["wq"]).reshape(b, s, h, dh)
+    k = L.matmul(uc, p["wk"]).reshape(b, s, h, dh)
+    v = L.matmul(u, p["wv"]).reshape(b, s, h, dh)
+    gates = L.matmul(xn.float(), p["w_if"]) + p["b_if"]
+    i_raw, f_raw = gates[..., :h], gates[..., h:]
+
+    if state is None:
+        C0 = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=x.device)
+        n0 = torch.zeros((b, h, dh), dtype=torch.float32, device=x.device)
+        m0 = torch.zeros((b, h), dtype=torch.float32, device=x.device)
+    else:
+        C0, n0, m0 = state["C"], state["n"], state["m"]
+    log_f = -_softplus(-f_raw)  # log sigmoid
+    hs, (C, n, m) = _mlstm_scan(q.float(), k.float() * (dh**-0.5), v.float(), i_raw, log_f,
+                                C0, n0, m0)
+    hs = _group_norm(hs.reshape(b, s, di).to(x.dtype), h) * p["gn"]
+    y = L.matmul(hs * F.silu(z), p["w_down"])
+    return y, {"C": C, "n": n, "m": m, "conv": conv_new}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory block)
+# ---------------------------------------------------------------------------
+def slstm_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    h = cfg.n_heads
+    dh = d // h
+    return {
+        "ln": L.rmsnorm_specs(d),
+        "w": ParamSpec((d, 4 * d), ("embed", "ff"), "scaled"),
+        "r": ParamSpec((h, dh, 4 * dh), ("heads", None, None), "scaled"),
+        "b": ParamSpec((4 * d,), (None,), "zeros", torch.float32),
+        "gn": ParamSpec((d,), ("embed",), "ones"),
+        "w_down": ParamSpec((d, d), ("embed", "embed"), "scaled"),
+    }
+
+
+def slstm_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    d = cfg.d_model
+    leaf = ParamSpec((batch, d), (None, "embed"), "zeros", torch.float32)
+    return {"c": leaf, "n2": leaf, "m2": leaf, "h": leaf}
+
+
+def slstm_apply(p, x, cfg: ModelConfig, state=None):
+    """x: (B, S, D). Returns (y, new_state {"c", "n2", "m2", "h"}); the
+    stabilizer ``m2`` starts at 0, as in the reference."""
+    b, s, d = x.shape
+    heads = cfg.n_heads
+    dh = d // heads
+    xn = L.rmsnorm(p["ln"], x)
+    wx = L.matmul(xn, p["w"]).float()  # (B, S, 4d)
+
+    if state is None:
+        c, n, m, h_prev = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
+                           for _ in range(4))
+    else:
+        c, n, m, h_prev = state["c"], state["n2"], state["m2"], state["h"]
+    r = p["r"].float()
+    hs = []
+    for wx_t in wx.unbind(1):
+        rec = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, heads, dh), r).reshape(b, 4 * d)
+        g = wx_t + rec + p["b"]
+        i_raw, f_raw, z_raw, o_raw = torch.split(g, d, dim=-1)
+        lf_m = -_softplus(-f_raw) + m
+        m_new = torch.maximum(lf_m, i_raw)
+        i_g = torch.exp(i_raw - m_new)
+        f_g = torch.exp(lf_m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_raw)
+        n = f_g * n + i_g
+        h_prev = torch.sigmoid(o_raw) * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h_prev)
+    hs = _group_norm(torch.stack(hs, dim=1).to(x.dtype), heads)
+    y = L.matmul(hs * p["gn"], p["w_down"])
+    return y, {"c": c, "n2": n, "m2": m, "h": h_prev}
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD scalar-A recurrence): zamba2's backbone
+# ---------------------------------------------------------------------------
+def _mamba2_heads(cfg: ModelConfig) -> int:
+    return max(cfg.expand * cfg.d_model // 64, 1)  # P = 64 head channels
+
+
+def mamba2_specs(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    di = cfg.expand * d
+    n = cfg.d_state
+    h = _mamba2_heads(cfg)
+    return {
+        "ln": L.rmsnorm_specs(d),
+        "in_proj": ParamSpec((d, 2 * di + 2 * n + h), ("embed", "ff"), "scaled"),
+        "conv": ParamSpec((cfg.d_conv, di + 2 * n), ("conv", None), "normal"),
+        "a_log": ParamSpec((h,), (None,), "zeros", torch.float32),
+        "dt_bias": ParamSpec((h,), (None,), "zeros", torch.float32),
+        "d_skip": ParamSpec((h,), (None,), "ones", torch.float32),
+        "gn": ParamSpec((di,), ("ff",), "ones"),
+        "out_proj": ParamSpec((di, d), ("ff", "embed"), "scaled"),
+    }
+
+
+def mamba2_state_specs(cfg: ModelConfig, batch: int) -> dict:
+    di = cfg.expand * cfg.d_model
+    h = _mamba2_heads(cfg)
+    return {
+        "S": ParamSpec((batch, h, di // h, cfg.d_state), (None, None, None, None), "zeros",
+                       torch.float32),
+        "conv": ParamSpec((batch, cfg.d_conv - 1, di + 2 * cfg.d_state), (None, None, None),
+                          "zeros", cfg.dtype),
+    }
+
+
+def mamba2_apply(p, x, cfg: ModelConfig, state=None):
+    """x: (B, S, D). Returns (y, new_state {"S", "conv"})."""
+    b, s, d = x.shape
+    di = cfg.expand * d
+    n = cfg.d_state
+    h = _mamba2_heads(cfg)
+    ph = di // h
+    xn = L.rmsnorm(p["ln"], x)
+    proj = L.matmul(xn, p["in_proj"])
+    z, xin, dt_raw = proj[..., :di], proj[..., di:2 * di], proj[..., 2 * di + 2 * n:]
+    bc = proj[..., 2 * di:2 * di + 2 * n]
+    conv_in = torch.cat([xin, bc], dim=-1)
+    conv_out, conv_new = _causal_depthwise_conv(conv_in, p["conv"],
+                                                None if state is None else state["conv"])
+    conv_out = F.silu(conv_out)
+    xc = conv_out[..., :di].reshape(b, s, h, ph)
+    bmat = conv_out[..., di:di + n].float()
+    cmat = conv_out[..., di + n:].float()
+
+    a = -torch.exp(p["a_log"])  # (H,)
+    dt = _softplus(dt_raw.float() + p["dt_bias"])  # (B, S, H)
+    xc32 = xc.float()
+    decay = torch.exp(a * dt)  # (B, S, H)
+    dtx = dt[..., None] * xc32  # (B, S, H, P)
+    S = (torch.zeros((b, h, ph, n), dtype=torch.float32, device=x.device) if state is None
+         else state["S"])
+    ys = []
+    # each step's inputs as views shaped for their broadcasts, taken before the
+    # loop; the read-out S·c is one (B, H·P, N) @ (B, N, 1) product (a
+    # broadcast of c over the heads would copy it every step)
+    steps = zip(decay[..., None, None].unbind(1), dtx[..., None].unbind(1),
+                bmat[:, :, None, None, :].unbind(1), cmat[..., None].unbind(1))
+    for decay_t, dtx_t, b_t, c_t in steps:
+        S = decay_t * S + dtx_t * b_t
+        ys.append(torch.bmm(S.view(b, h * ph, n), c_t))
+    y = torch.stack(ys, dim=1).view(b, s, h, ph)
+    y = y + p["d_skip"][:, None] * xc32
+    y = _group_norm(y.reshape(b, s, di).to(x.dtype), h)
+    y = L.matmul(y * p["gn"] * F.silu(z), p["out_proj"])
+    return y, {"S": S, "conv": conv_new}

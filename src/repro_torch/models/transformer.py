@@ -15,12 +15,12 @@ image embeddings to the sequence, as the reference's internvl2 backbone does.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kvcache import quant
 from repro_torch.models import attention as attn
+from repro_torch.models import base
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
 
@@ -65,14 +65,14 @@ def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
     return q, k, v
 
 
-def train_attention(q, k, v, cfg: ModelConfig):
-    """Causal self-attention of a training forward: on the card, with no
-    window, the flash kernel through its autograd entry (whose backward
-    recomputes the plain attention); else the plain blockwise attention, as
-    the reference computes it (the CPU, and sliding windows)."""
+def train_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
+    """Attention of a training forward (causal unless told otherwise): on the
+    card, with no window, the flash kernel through its autograd entry (whose
+    backward recomputes the plain attention); else the plain blockwise
+    attention, as the reference computes it (the CPU, and sliding windows)."""
     if cfg.window == 0 and q.device.type == "cuda":
-        return flash_ops.flash_attention_train(q, k, v, causal=True)
-    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.window)
+        return flash_ops.flash_attention_train(q, k, v, causal=causal)
+    return attn.blockwise_attention(q, k, v, causal=causal, window=cfg.window)
 
 
 def attn_block(p, x, cfg: ModelConfig, positions):
@@ -80,6 +80,13 @@ def attn_block(p, x, cfg: ModelConfig, positions):
     q, k, v = qkv(p, x, cfg, positions)
     o = train_attention(q, k, v, cfg)
     return L.matmul(o.reshape(b, s, -1), p["wo"])
+
+
+def stack_specs(n: int, tree):
+    """Prepend a stacked ``layers`` axis of ``n`` to every ParamSpec of
+    ``tree`` (the layout of the recurrent families' state caches)."""
+    return base.tree_map(lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init,
+                                             s.dtype), tree)
 
 
 def layer_specs(cfg: ModelConfig) -> dict:
@@ -118,10 +125,7 @@ def forward(params, batch, cfg: ModelConfig):
         return h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
 
     for lp in params["layers"]:
-        if cfg.remat:  # no randomness inside, so no RNG state to keep for the recompute
-            x = checkpoint(layer, x, lp, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = layer(x, lp)
+        x = L.remat(cfg.remat, layer, x, lp)
     return norm(cfg, params["ln_f"], x)
 
 
@@ -186,13 +190,14 @@ def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
     return {"k": kv, "v": kv, "k_scale": sc, "v_scale": sc}
 
 
-def prefill_attention(q, k, v, cfg: ModelConfig):
-    """Causal self-attention over the prompt: the flash kernel on the card when
+def prefill_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
+    """Attention over the prompt (causal unless told otherwise; whisper's
+    encoder and cross-attention are not): the flash kernel on the card when
     the model has no window, else the plain blockwise attention (on the CPU,
     as the reference computes it, and for sliding windows)."""
     if cfg.window == 0 and q.device.type == "cuda":
-        return flash_ops.flash_attention(q, k, v, causal=True)
-    return attn.blockwise_attention(q, k, v, causal=True, window=cfg.window)
+        return flash_ops.flash_attention(q, k, v, causal=causal)
+    return attn.blockwise_attention(q, k, v, causal=causal, window=cfg.window)
 
 
 def prefill(params, batch, cfg: ModelConfig):

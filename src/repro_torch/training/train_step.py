@@ -15,12 +15,23 @@ def make_loss_fn(cfg: ModelConfig):
     return registry.get_api(cfg).loss_fn
 
 
-def value_and_grad(loss_fn, params, batch):
-    """(loss, gradients in the parameters' tree and dtypes) of one batch."""
+def value_and_grad(loss_fn, params, batch, idle=()):
+    """(loss, gradients in the parameters' tree and dtypes) of one batch.
+
+    ``idle`` names the subtrees (dotted paths, a family's ``idle_params``)
+    that the loss may not reach, such as the block an xLSTM layer does not
+    run: a leaf there gets a zero gradient, as JAX gives it. Any other leaf
+    that the loss does not reach (a broken graph) raises."""
+    paths = list(base.tree_paths(params))
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in base.tree_leaves(params)]
         loss = loss_fn(base.tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+    for i, (path, g) in enumerate(zip(paths, grads)):
+        if g is None:
+            if not any(path.startswith(f"{sub}.") for sub in idle):
+                raise RuntimeError(f"the loss does not reach parameter {path}")
+            grads[i] = torch.zeros_like(leaves[i])
     return loss.detach(), base.tree_unflatten(params, grads)
 
 
@@ -32,11 +43,12 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     gradients are summed in float32 and divided by their count (the
     reference's ``lax.scan``).
     """
-    loss_fn = make_loss_fn(cfg)
+    api = registry.get_api(cfg)
+    loss_fn = api.loss_fn
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = value_and_grad(loss_fn, params, batch, api.idle_params)
         else:
             b = batch["tokens"].shape[0]
             if b % microbatches:
@@ -45,7 +57,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
                                                         device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for mbatch in zip(*(torch.chunk(x, microbatches) for x in batch.values())):
-                l, g = value_and_grad(loss_fn, params, dict(zip(batch, mbatch)))
+                l, g = value_and_grad(loss_fn, params, dict(zip(batch, mbatch)),
+                                      api.idle_params)
                 for acc, gi in zip(base.tree_leaves(grads), base.tree_leaves(g)):
                     acc.add_(gi.float())
                 loss = loss + l

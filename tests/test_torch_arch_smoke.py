@@ -1,10 +1,10 @@
 """The twin of tests/test_arch_smoke.py for the port: a REDUCED config of the
 same family runs one loss-and-gradient pass (and a prefill and one decode
-step) on the CPU, for every architecture whose family the port registers;
-shapes and finite values are asserted as the reference's test asserts them,
-and the loss is held to the JAX package's on the same parameters and batch
-(rtol 1e-5: one f32 function summed in another order). The architectures
-the port lacks must be refused, naming ROADMAP.md.
+step) on the CPU, for each of the reference's ten architectures; shapes and
+finite values are asserted as the reference's test asserts them, and the
+loss is held to the JAX package's on the same parameters and batch (rtol
+1e-5: one f32 function summed in another order). The port's architectures
+are the reference's, config for config.
 """
 
 import dataclasses
@@ -32,6 +32,9 @@ def _batch_for(cfg, seed=1):
     n_txt = SEQ - cfg.n_img_tokens if cfg.family == "vlm" else SEQ
     batch = {"tokens": rng.integers(0, cfg.vocab, (BATCH, n_txt)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab, (BATCH, n_txt)).astype(np.int32)}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal((BATCH, cfg.enc_len, cfg.d_model),
+                                              dtype=np.float32)
     if cfg.family == "vlm":
         batch["img_embeds"] = rng.standard_normal((BATCH, cfg.n_img_tokens, cfg.d_model),
                                                   dtype=np.float32)
@@ -51,8 +54,10 @@ def _setup(arch):
 def test_smoke_train_step(arch):
     ct, cj, pt, pj = _setup(arch)
     batch = _batch_for(ct)
-    loss, grads = ts.value_and_grad(registry.get_api(ct).loss_fn, pt,
-                                    {k: torch.from_numpy(v) for k, v in batch.items()})
+    api = registry.get_api(ct)
+    loss, grads = ts.value_and_grad(api.loss_fn, pt,
+                                    {k: torch.from_numpy(v) for k, v in batch.items()},
+                                    api.idle_params)
     assert np.isfinite(float(loss)), f"{arch}: loss not finite"
     assert 1.0 < float(loss) < 20.0, f"{arch}: loss {float(loss)}"
     gnorm = sum(float(torch.sum(torch.square(g.float()))) for g in base.tree_leaves(grads))
@@ -77,9 +82,9 @@ def test_smoke_decode_step(arch):
     logits2, cache2 = api.decode_step(pt, cache, tok, pos)
     assert logits2.shape[:2] == (BATCH, 1)
     assert bool(torch.isfinite(logits2.float()).all()), f"{arch}: decode NaN"
-    # cache structure is preserved
-    assert {k: (v.shape, v.dtype) for k, v in cache.items()} == {
-        k: (v.shape, v.dtype) for k, v in cache2.items()}
+    # cache structure is preserved, nested states (xlstm, hybrid) included
+    assert {k: (v.shape, v.dtype) for k, v in base.tree_paths(cache).items()} == {
+        k: (v.shape, v.dtype) for k, v in base.tree_paths(cache2).items()}
 
 
 def _port_config(cfg) -> ModelConfig:
@@ -89,12 +94,13 @@ def _port_config(cfg) -> ModelConfig:
     return ModelConfig(**kw)
 
 
-def test_ported_archs_are_the_references_and_the_rest_are_refused():
-    assert set(ARCHS) <= set(J_ARCHS)
+def test_ported_archs_are_the_references():
+    """All ten, nothing missing, every config equal, every family served."""
+    assert set(ARCHS) == set(J_ARCHS) and len(ARCHS) == 10
     for arch, cfg in ARCHS.items():
         assert _port_config(J_ARCHS[arch]) == cfg, arch
-    missing = sorted(set(J_ARCHS) - set(ARCHS))
-    assert missing == ["whisper-medium", "xlstm-125m", "zamba2-2.7b"]
-    for arch in missing:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_api(_port_config(J_ARCHS[arch]))
+        assert registry.get_api(cfg).cfg is cfg
+    assert {cfg.family for cfg in ARCHS.values()} == {"dense", "moe", "encdec", "ssm", "vlm",
+                                                      "hybrid"}
+    with pytest.raises(NotImplementedError, match="family"):
+        registry.get_api(ARCHS["tinyllama-1.1b"].with_(family="rnn"))

@@ -53,7 +53,6 @@ from repro.training import optim as j_optim
 from repro.training import train_step as j_ts
 from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as ckpt
-from repro_torch.checkpoint.checkpoint import _flatten
 from repro_torch.configs import tinyllama_1_1b
 from repro_torch.configs.base import smoke_variant
 from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -101,7 +100,7 @@ def to_torch(batch):
 
 def flat(tree):
     """{dotted path: float32 numpy} of a reference-layout tree (numpy or JAX)."""
-    return {k: to_np(v) for k, v in _flatten(tree).items()}
+    return {k: to_np(v) for k, v in base.tree_paths(tree).items()}
 
 
 def assert_trees_close(port_tree, ref_tree, *, rtol, atol_of_max, what):
@@ -374,8 +373,8 @@ def train_state_pair():
 
 
 def assert_bit_equal(port_tree, ref_tree):
-    got = _flatten(convert.stack_layers(port_tree))
-    want = _flatten(ref_tree)
+    got = base.tree_paths(convert.stack_layers(port_tree))
+    want = base.tree_paths(ref_tree)
     assert set(got) == set(want)
     for k, t in got.items():
         w = np.asarray(want[k])

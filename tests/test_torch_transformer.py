@@ -179,9 +179,9 @@ def test_specs_and_materialize(kind):
 
 
 def test_registry_ports_only_the_dense_family():
-    """The registry serves the families the port has (dense; vlm, which is the
-    dense module; moe, with MLA attention or without) and refuses the rest,
-    naming ROADMAP.md: encdec, ssm, hybrid."""
+    """The registry serves every family of the reference (dense; vlm, which is
+    the dense module; moe, with MLA attention or without; encdec, ssm and
+    hybrid) and refuses a family the reference does not have."""
     _, ct = small_configs("serve_f32")
     api = registry.get_api(ct)
     assert api.cfg is ct and base.n_params(api.specs()) > 0
@@ -197,9 +197,12 @@ def test_registry_ports_only_the_dense_family():
               v_head_dim=2)
     assert "wkv_b" in registry.get_api(mla).specs()["moe_layers"][0]["attn"]
     assert set(registry.get_api(mla).init_cache_specs(1, 4)) == {"moe_ckv", "moe_krope"}
-    for c in (cfg("encdec"), cfg("ssm"), cfg("hybrid")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.get_api(c)
+    assert set(registry.get_api(cfg("encdec", n_enc_layers=1, enc_len=4)).specs()) == {
+        "embed", "enc_layers", "enc_ln_f", "dec_layers", "ln_f"}
+    assert "slstm" in registry.get_api(cfg("ssm", ssm_kind="xlstm")).specs()["layers"][0]
+    assert "shared" in registry.get_api(cfg("hybrid", attn_every=1)).specs()
+    with pytest.raises(NotImplementedError, match="family"):
+        registry.get_api(cfg("rnn"))
 
 
 def test_vlm_prefill_matches_reference():
