@@ -131,7 +131,31 @@ Phases, one JSON line each:
               prefill, 0 per decode step, 0 for xlstm and zamba2), host syncs of a
               decode step, a profiled prefill (256 tokens for the recurrent
               families, whose per-token work the host issues) and a profiled
-              decode step. Frames and tokens are drawn by numpy from --seed
+              decode step. (c) The flash kernel's autograd entry at whisper's
+              encoder (B 4 x 1500 x 1500) and cross (416 x 1500) shapes, non-causal,
+              against the plain attention's gradients in f32 and bf16, and its
+              refusal of inputs that require grad; (d) one make_train_step step of
+              each family at (a)'s cut depth in f32, card against CPU from the same
+              numpy-made parameters and batch, held as train (a) holds tinyllama.
+              Frames and tokens are drawn by numpy from --seed
+ 15. dryrun   the dry run on the meta device (python -m repro_torch.launch.dryrun)
+              held against the card: (a) the whole dry run (ten archs x four
+              shapes x the 16x16, 2x16x16 and h100_1x1 meshes, seven processes):
+              cells ok, skipped and failed per mesh, and the h100_1x1 fit table
+              (per-device bytes, estimated peak, fits); (b) each arch whose
+              parameters fit the card, one cell per kind (train_4k, prefill_32k,
+              decode_32k) at published widths and depth with global_batch cut to 1
+              (xlstm's and zamba2's train and prefill to 2048 tokens), and every
+              whole cell that fits: each cell the dry run rules out printed with
+              its bytes; each other run on the card, its materialized arguments'
+              bytes equal to the dry run's per-device argument bytes, the FLOPs
+              counted on the card equal to the meta count (but where a recurrence
+              loops per token), max_memory_allocated beside the estimate (and
+              the bytes requested at the peak within cuBLAS's workspace of the
+              live bytes tracked on the card, which holds dryrun.inside_bytes to
+              what kernels allocate inside), max_memory_reserved, achieved
+              TFLOP/s and the flash launches; all under the caching allocator's
+              default settings, as the port's entry points run
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -148,11 +172,13 @@ import sys
 import time
 import warnings
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -175,7 +201,8 @@ from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E40
     tiered_decode_partial, tiered_decode_partial_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kvcache import paged, tiers  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
     attention as attn, base, encdec, hybrid, moe, registry, transformer, xlstm)
 from repro_torch.serving import serve_step  # noqa: E402
@@ -1243,20 +1270,23 @@ def step1_param_gap(m_card, m_cpu, ocfg):
     return ocfg.lr * (r(m_card) - r(m_cpu)).abs()
 
 
-def train_card_vs_cpu(dev, cfg, smi):
-    """(a) One make_train_step step of a 2-layer model at ``cfg``'s widths in
-    f32 (f32 parameters and dtype; TF32 off, as phase_device sets it), the same
-    numpy-made parameters and batch on the card and on the CPU: loss, grad
-    norm, and every updated moment and parameter (TRAIN_TOL). The errors are
-    printed before they are checked."""
-    c = cfg.with_(n_layers=TRAIN_CMP["n_layers"], dtype=torch.float32)
+def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_card_vs_cpu"):
+    """(a) One make_train_step step of ``c`` in f32 (f32 parameters and
+    dtype; TF32 off, as phase_device sets it), the same numpy-made parameters
+    (from ``seed``) and batch (default: SyntheticLM's) on the card and on the
+    CPU: loss, grad norm, and every updated moment and parameter (TRAIN_TOL).
+    The errors are printed before they are checked; the flash launches of the
+    card's step must be the forward's and remat's recompute's. Returns the
+    launches."""
+    check(c.dtype == torch.float32, f"{c.arch} is held in f32, not {c.dtype}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     ocfg = optim.AdamWConfig(lr=TRAIN_CMP["lr"], warmup=1, total_steps=10)
-    p_cpu = numpy_params(c, 7)
+    p_cpu = numpy_params(c, seed)
     p_dev = base.tree_map(lambda t: t.to(dev, copy=True), p_cpu)  # the step works in place
-    data = SyntheticLM(DataConfig(vocab=c.vocab, seq_len=TRAIN_CMP["seq"],
-                                  global_batch=TRAIN_CMP["batch"], seed=1))
-    batch = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+    if batch is None:
+        data = SyntheticLM(DataConfig(vocab=c.vocab, seq_len=TRAIN_CMP["seq"],
+                                      global_batch=TRAIN_CMP["batch"], seed=1))
+        batch = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
     step = train_step.make_train_step(c, ocfg)
     reset_counts()
     p_dev, s_dev, m_dev = step(p_dev, optim.init(p_dev), {k: v.to(dev) for k, v in batch.items()})
@@ -1295,13 +1325,29 @@ def train_card_vs_cpu(dev, cfg, smi):
                 params_max_abs_err_over_lr=worst["params"], tolerance_used=used,
                 params_moved_apart_over_lr_tenth=wide,
                 params_max_err_beyond_moments_over_lr=unexplained)
-    emit("train", part="a_card_vs_cpu", nvidia_smi=smi, arch=cfg.arch, n_layers=c.n_layers,
-         d_model=c.d_model, dtype="float32", tf32=False, batch=TRAIN_CMP["batch"],
-         seq=TRAIN_CMP["seq"], lr=ocfg.lr, loss=float(m_cpu["loss"]),
-         grad_norm=float(m_cpu["grad_norm"]), tol=TRAIN_TOL, errors=errs, launches=n)
-    check(n["flash_attention_fwd"] == 2 * c.n_layers,  # the forward, and remat's recompute
-          f"flash launches {n}, want {2 * c.n_layers}")
-    check(not fails, f"card against CPU: {fails}")
+    emit(phase, part=part, nvidia_smi=smi, arch=c.arch, n_layers=c.n_layers,
+         n_enc_layers=c.n_enc_layers, d_model=c.d_model, dtype="float32", tf32=False,
+         batch=int(batch["tokens"].shape[0]), seq=int(batch["tokens"].shape[1]), lr=ocfg.lr,
+         loss=float(m_cpu["loss"]), grad_norm=float(m_cpu["grad_norm"]), tol=TRAIN_TOL,
+         errors=errs, launches=n)
+    # the forward's flash launches, and remat's recompute's in the backward
+    want = flash_per_forward(c) * (2 if c.remat else 1)
+    check(n["flash_attention_fwd"] == want, f"{c.arch} flash launches {n}, want {want}")
+    check(not fails, f"{c.arch} card against CPU: {fails}")
+    return n
+
+
+def flash_per_forward(cfg):
+    """Flash launches of one forward (a training forward, or a prefill): one
+    per attention layer of a windowless model without MTP (whisper: its
+    encoder layers, and its decoder layers' self- and cross-attention); none
+    for xlstm or the windowed zamba2."""
+    check(not cfg.mtp_depth, f"{cfg.arch}: the MTP block's launches are not counted here")
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    if cfg.family in ("ssm", "hybrid") or cfg.window:
+        return 0
+    return cfg.n_layers
 
 
 def autograd_entry_check(dev, smi, shape, phase, part, seed):
@@ -1490,7 +1536,7 @@ def train_resume(dev, cfg, smi):
 def phase_train(dev, cfg, smi):
     """Training on the card (see the module docstring, phase 9). Returns the
     main run's launch counts and the flash kernel's training-shape numbers."""
-    train_card_vs_cpu(dev, cfg, smi)
+    train_card_vs_cpu(dev, cfg.with_(n_layers=TRAIN_CMP["n_layers"], dtype=torch.float32), smi)
     attention = train_attention_check(dev, smi)
     launches = train_run(dev, cfg, smi)
     train_resume(dev, cfg, smi)
@@ -1768,13 +1814,6 @@ FAM_BATCH, FAM_STEPS = 4, 32  # (b)
 FAM_PROFILE_PROMPT = 256  # (b)'s profiled prefill of xlstm and zamba2 (per-token host loops)
 
 
-def flash_per_prefill(cfg):
-    """Flash launches of one prefill: whisper's encoder layers, and its decoder
-    layers' self- and cross-attention; none for the recurrent families (zamba2's
-    windowed attention takes the blockwise attention)."""
-    return cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec" else 0
-
-
 def family_batch(cfg, rng, batch, prompt, labels=False):
     """Tokens (and labels) drawn by numpy, and for whisper the encoder's
     frames (B, enc_len, d_model), f32 as the stub frontend hands them over."""
@@ -1862,7 +1901,7 @@ def families_card_vs_cpu(dev, smi, arch, seed):
          loss=float(l_c), loss_rel_err=loss_err, loss_tol=TRAIN_TOL["loss"],
          launches_prefill=n_prefill, launches_loss=n_loss)
     check(loss_err <= TRAIN_TOL["loss"], f"{arch} loss: card against CPU {loss_err}")
-    want = flash_per_prefill(c)
+    want = flash_per_forward(c)
     check(n_prefill["flash_attention_fwd"] == want and n_steps == n_prefill
           and n_loss["flash_attention_fwd"] == want,
           f"{arch} launches {n_prefill} in the prefill, {n_steps} after the steps, {n_loss} "
@@ -1893,7 +1932,7 @@ def families_serve(dev, smi, arch, seed, batch=FAM_BATCH, steps=FAM_STEPS):
     r = timed_serve(mod, cfg, params, prefill, step, data, prompt, steps)
     tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
     n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
-    want = {"flash_attention_fwd": flash_per_prefill(cfg), "tiered_decode_partial": 0,
+    want = {"flash_attention_fwd": flash_per_forward(cfg), "tiered_decode_partial": 0,
             "quantize_pages": 0}
     check(n_prefill == want and n == want,
           f"{arch} launches {n_prefill} in the prefill and {n} in the run, want {want}")
@@ -1936,11 +1975,36 @@ def families_serve(dev, smi, arch, seed, batch=FAM_BATCH, steps=FAM_STEPS):
     return n["flash_attention_fwd"]
 
 
+def families_train(dev, smi, seed):
+    """(c) The flash kernel's autograd entry at whisper's encoder and cross
+    shapes (non-causal, Sq = Sk = 1500 and 416 x 1500) against the plain
+    attention's gradients, f32 and bf16; (d) one make_train_step step of each
+    family at its (a) depth cut and published widths in f32, on the card and
+    on the CPU from the same numpy-made parameters and batch
+    (``train_card_vs_cpu``). Returns (c)'s errors by shape and (d)'s flash
+    launches by arch."""
+    entry = {label: autograd_entry_check(dev, smi, WHISPER_FLASH[label], "families",
+                                         f"c_autograd_entry_{label}", 21)[0]
+             for label in ("whisper_enc", "whisper_cross")}
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch, (cfg, _, cut, _) in FAMILIES.items():
+        c = cfg.with_(**cut, dtype=torch.float32)
+        batch = family_batch(c, np.random.default_rng(seed), FAM_CMP["batch"], FAM_CMP["prompt"],
+                             labels=True)
+        launches[arch] = train_card_vs_cpu(dev, c, smi, batch=batch, seed=seed,
+                                           phase="families", part="d_train_card_vs_cpu")
+        torch.cuda.empty_cache()
+    return entry, launches
+
+
 def phase_families(dev, smi, seed):
     """whisper-medium, xlstm-125m and zamba2-2.7b on the card (see the module
     docstring, phase 14): (a) card against CPU in f32 at a cut depth, (b) the
-    main serving path at full width and depth in bf16. Returns (b)'s flash
-    launches by arch."""
+    main serving path at full width and depth in bf16, (c) the autograd entry
+    at whisper's non-causal shapes, (d) one training step each, card against
+    CPU. Returns (b)'s flash launches by arch, with whisper's training step's
+    under "whisper_train", and (c)'s errors."""
     for arch in FAMILIES:
         families_card_vs_cpu(dev, smi, arch, seed)
         torch.cuda.empty_cache()
@@ -1948,7 +2012,215 @@ def phase_families(dev, smi, seed):
     for arch in FAMILIES:
         launches[arch] = families_serve(dev, smi, arch, seed)
         torch.cuda.empty_cache()
-    return launches
+    entry, train_launches = families_train(dev, smi, seed)
+    launches["whisper_train"] = train_launches["whisper-medium"]["flash_attention_fwd"]
+    return launches, entry
+
+
+# --------------------------------------------------------------------------
+# the dry run (launch/dryrun.py) on the card machine, held against real steps
+# --------------------------------------------------------------------------
+DRYRUN_JOBS = 7  # the dry run's processes, one arch each, on the machine's 8 cores
+DRYRUN_CUT_SEQ = 2048  # the recurrent families' train and prefill: one host step per token
+DRYRUN_KINDS = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
+RECURRENT = ("ssm", "hybrid")
+# all that the bytes requested from the allocator hold beyond the live
+# tensors the tracker sees: cuBLAS's and cuBLASLt's workspaces, held from the
+# first product on, and up to 1 MiB asked for below the dispatcher
+CUBLAS_WORKSPACE_BYTES = 64 * 2**20
+UNSEEN_SLACK_BYTES = 2**20
+
+
+def dryrun_cli(arch):
+    """``python -m repro_torch.launch.dryrun --arch arch --mesh all --force``."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    return subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                           "--mesh", "all", "--force"], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+
+
+def dryrun_records(smi, runs, wall):
+    """(a) The whole dry run's records read back (``runs``: each arch's
+    ``dryrun_cli`` result): per mesh the cells ok, skipped (long_500k for the
+    non-recurrent families, as the reference skips it) and failed (none
+    allowed); and the h100_1x1 table. Returns the h100_1x1 records by (arch,
+    shape)."""
+    for arch, r in runs.items():
+        check(r.returncode == 0, f"dry run of {arch}: rc {r.returncode}\n{r.stdout[-2000:]}"
+                                 f"\n{r.stderr[-2000:]}")
+    by_mesh = {}
+    for _, (mesh_name, _) in dryrun.MESHES.items():
+        recs = [json.loads((dryrun.RESULTS / mesh_name / f"{a}__{sh}.json").read_text())
+                for a in dryrun.ARCHS for sh in dryrun.SHAPES]
+        n = Counter(r["status"] for r in recs)
+        skipped = sorted((r["arch"], r["shape"]) for r in recs if r["status"] == "skipped")
+        want_skip = sorted((a, "long_500k") for a, c in dryrun.ARCHS.items()
+                           if c.family not in RECURRENT)
+        emit("dryrun", part="a_mesh", nvidia_smi=smi, mesh=mesh_name, ok=n["ok"],
+             skipped=n["skipped"], failed=n["fail"], wall_s=wall,
+             count_s=sum(r.get("count_s", 0) for r in recs))
+        check(n["fail"] == 0 and n["ok"] + n["skipped"] == len(recs) and skipped == want_skip,
+              f"dry run on {mesh_name}: {dict(n)}, skipped {skipped}")
+        by_mesh[mesh_name] = {(r["arch"], r["shape"]): r for r in recs if r["status"] == "ok"}
+    card = by_mesh[dryrun.CARD_MESH]
+    table = {a: {sh: dict(args_gb=r["per_device_bytes"]["arguments"] / 1e9,
+                          peak_gb=r["peak_bytes_estimate"] / 1e9, fits=r["fit"]["fits"])
+                 for (a2, sh), r in card.items() if a2 == a} for a in dryrun.ARCHS}
+    any_rec = next(iter(card.values()))
+    emit("dryrun", part="a_fit_table", nvidia_smi=smi, mesh=dryrun.CARD_MESH,
+         device=any_rec["fit"]["device"], device_bytes=any_rec["fit"]["device_bytes"],
+         headroom_bytes=any_rec["fit"]["headroom_bytes"], table=table)
+    return card
+
+
+def card_args(cfg, shape, dev):
+    """The cell's arguments on the card, laid out as ``dryrun.abstract_args``:
+    parameters drawn from seed 0, zero AdamW moments for training, tokens,
+    labels and frames drawn on the card, a decode cache from its specs' init
+    and the position of its last slot."""
+    api = registry.get_api(cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = base.materialize(api.specs(), gen, device=dev)
+    b, s = shape.global_batch, shape.seq_len
+
+    def ints(shape_):
+        return torch.randint(0, cfg.vocab, shape_, generator=gen, device=dev, dtype=torch.int32)
+
+    if shape.kind == "decode":
+        inputs = {"tokens": ints((b, 1)),
+                  "pos": torch.full((b,), s - 1, dtype=torch.int32, device=dev),
+                  "cache": base.materialize(api.init_cache_specs(b, s), gen, device=dev)}
+    else:
+        abstract = registry.input_specs(cfg, shape)
+        inputs = {k: ints(v.shape) if v.dtype == torch.int32 else
+                  torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+                  for k, v in abstract.items()}
+    return {"params": params, "opt_state": optim.init(params) if shape.kind == "train" else None,
+            "inputs": inputs}
+
+
+def dryrun_cell(dev, smi, cfg, shape, cuts, rec):
+    """(b) One cell on the card, where its dry-run record ``rec`` says it
+    fits: its arguments materialized (their bytes must equal the record's
+    per-device argument bytes, leaf shapes and dtypes its abstract ones), one
+    step under FlopCounterMode where the step has no per-token host loop
+    (its count must equal the record's), and one timed step: achieved
+    TFLOP/s, peak memory beside the estimate, flash launches. Returns the
+    timed step's flash launches, or None where the cell was ruled out."""
+    head = dict(nvidia_smi=smi, arch=cfg.arch, shape=shape.name, kind=shape.kind,
+                batch=shape.global_batch, seq=shape.seq_len, cuts=cuts,
+                per_device_bytes=rec["per_device_bytes"], peak_estimate=rec["peak_bytes_estimate"],
+                headroom_bytes=rec["fit"]["headroom_bytes"],
+                device_bytes=rec["fit"]["device_bytes"],
+                flops=rec["step_flops_global"])
+    if not rec["fit"]["fits"]:
+        emit("dryrun", part="b_ruled_out", **head)
+        return None
+    torch.cuda.empty_cache()
+    args = card_args(cfg, shape, dev)
+    abstract = dryrun.abstract_args(cfg, shape)
+    check([(tuple(t.shape), t.dtype) for t in base.tree_leaves(args) if t is not None]
+          == [(tuple(t.shape), t.dtype) for t in base.tree_leaves(abstract) if t is not None],
+          f"{cfg.arch} {shape.name}: the card's arguments are not the abstract ones")
+    nbytes = dryrun.tree_bytes(args)
+    check(nbytes == rec["per_device_bytes"]["arguments"],
+          f"{cfg.arch} {shape.name}: {nbytes} bytes on the card, the dry run "
+          f"{rec['per_device_bytes']['arguments']}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card_flops = card_live = None
+    if not (cfg.family in RECURRENT and shape.kind != "decode"):
+        # also the warm-up; the live bytes the estimate's tracker sees on the
+        # card part the estimate's misses into what passes through PyTorch's
+        # dispatcher and what kernels allocate inside
+        live = dryrun.LiveBytes()
+        live.track(args)
+        with FlopCounterMode(display=False) as fc, live:
+            dryrun.run_step(cfg, shape, args)
+            torch.cuda.synchronize()
+        card_flops, card_live = int(fc.get_total_flops()), live.peak
+    n0 = flash_attention_fwd.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dryrun.run_step(cfg, shape, args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    flash = flash_attention_fwd.launches - n0
+    peak = torch.cuda.max_memory_allocated()
+    # what was asked for, before the allocator rounds blocks up (to 512 bytes,
+    # and by its default settings up to 1 MiB more where it does not split one)
+    requested = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    want = flash_per_forward(cfg) * (2 if shape.kind == "train" and cfg.remat else 1)
+    if shape.kind == "decode":
+        want = 0
+    emit("dryrun", part="b_cell", **head, argument_bytes_on_card=nbytes, card_flops=card_flops,
+         ms=ms, achieved_tflop_per_s=rec["step_flops_global"] / (ms / 1e3) / 1e12,
+         max_memory_allocated=peak, peak_over_estimate=peak / rec["peak_bytes_estimate"],
+         requested_bytes_peak=requested, max_memory_reserved=torch.cuda.max_memory_reserved(),
+         tracked_peak_on_card=card_live, flash_launches=flash)
+    # what the tracker cannot see (kernels' inside allocations but softmax's,
+    # which inside_bytes adds) is at most cuBLAS's workspace
+    check(card_live is None
+          or 0 <= requested - card_live <= CUBLAS_WORKSPACE_BYTES + UNSEEN_SLACK_BYTES,
+          f"{cfg.arch} {shape.name}: {requested} bytes requested at the peak, tracked on the "
+          f"card {card_live} (inside_bytes included): more than cuBLAS's workspace apart")
+    check(card_flops is None or card_flops == rec["step_flops_global"],
+          f"{cfg.arch} {shape.name}: {card_flops} FLOPs counted on the card, "
+          f"{rec['step_flops_global']} on meta")
+    check(flash == want, f"{cfg.arch} {shape.name}: {flash} flash launches, want {want}")
+    del args
+    torch.cuda.empty_cache()
+    return flash
+
+
+def phase_dryrun(dev, smi):
+    """The dry run on the card machine (see the module docstring, phase 15):
+    (a) the whole dry run, all three meshes, DRYRUN_JOBS processes, while
+    this process takes the dry run's records of (b)'s cut cells; (b) for each
+    arch whose parameters fit the card, one cell per applicable kind at
+    published widths and depth with global_batch cut to 1 (the recurrent
+    families' train and prefill also cut to DRYRUN_CUT_SEQ tokens), and every
+    whole cell the dry run says fits (but the recurrent families' train and
+    prefill, 32,768 host steps), each run where the dry run says it fits.
+    The counts are set to 0 just before (b) and read just after it. Returns
+    (b)'s launch counts."""
+    total, _ = dryrun.card_bytes()
+    meta = make_host_mesh("meta")
+    cells = []
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(DRYRUN_JOBS) as pool:
+        runs = pool.map(dryrun_cli, dryrun.ARCHS)  # submitted now, read below
+        for arch, cfg in dryrun.ARCHS.items():
+            if dryrun.tree_bytes(base.abstract(registry.get_api(cfg).specs())) > total:
+                continue
+            for kind, name in DRYRUN_KINDS.items():
+                shape = dryrun.SHAPES[name]
+                cut = replace(shape, global_batch=1)
+                cuts = {"global_batch": [shape.global_batch, 1]}
+                if cfg.family in RECURRENT and kind != "decode":
+                    cut = replace(cut, seq_len=DRYRUN_CUT_SEQ)
+                    cuts["seq_len"] = [shape.seq_len, DRYRUN_CUT_SEQ]
+                cells.append((cfg, cut, cuts, dryrun.dry_cell(cfg, cut, meta, dryrun.CARD_MESH)))
+        runs = dict(zip(dryrun.ARCHS, runs))
+    card = dryrun_records(smi, runs, time.perf_counter() - t0)
+    for (arch, name), rec in card.items():
+        cfg, shape = dryrun.ARCHS[arch], dryrun.SHAPES[name]
+        if not rec["fit"]["fits"]:
+            continue
+        if cfg.family in RECURRENT and shape.kind != "decode":
+            emit("dryrun", part="b_not_run_whole", nvidia_smi=smi, arch=arch, shape=name,
+                 reason="one host step per token")
+        else:
+            cells.append((cfg, shape, {}, rec))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reset_counts()
+    ran = [dryrun_cell(dev, smi, *cell) for cell in cells]
+    n = counts()
+    emit("dryrun", part="b_summary", nvidia_smi=smi, cells=len(cells),
+         run=sum(f is not None for f in ran), ruled_out=sum(f is None for f in ran),
+         seconds=time.perf_counter() - t0, launches=n)
+    return n
 
 
 SSD_REQUESTS = 100_000  # quickstart's default
@@ -2311,7 +2583,7 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
                          "(no path, serve, prefill, times, profile, train, moe, mla, families, "
-                         "ssd or sweep phase)")
+                         "dryrun, ssd or sweep phase)")
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the families phase's frames and tokens")
     a = ap.parse_args()
@@ -2337,15 +2609,19 @@ def main():
         train_launches, train_attention = phase_train(dev, cfg, smi)
         moe_launches = phase_moe(dev, smi)
         mla_launches, mla_entry = phase_mla(dev, smi)
-        family_launches = phase_families(dev, smi, a.seed)
+        family_launches, whisper_entry = phase_families(dev, smi, a.seed)
+        dryrun_launches = phase_dryrun(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
         # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
+        # and training step (f32, 2 + 2 layers), and the dry run's cells (bf16)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
                    **moe_launches, "mla_prefill": mla_launches,
-                   "whisper_prefill": family_launches["whisper-medium"]}
+                   "whisper_prefill": family_launches["whisper-medium"],
+                   "whisper_train": family_launches["whisper_train"],
+                   "dryrun_cells": dryrun_launches["flash_attention_fwd"]}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
@@ -2359,7 +2635,10 @@ def main():
                 autograd_entry_max_abs_err={dt: r["max_abs_err"] for dt, r in mla_entry.items()}),
             **{f"{label}_bf16": dict(**times[f"flash_{label}"], max_abs_err={
                 dt: flash_err[f"{label}_{dt}"] for dt in ("float32", "bfloat16")})
-               for label in WHISPER_FLASH})}
+               for label in WHISPER_FLASH},
+            whisper_autograd_entry_max_abs_err={
+                label: {dt: r["max_abs_err"] for dt, r in e.items()}
+                for label, e in whisper_entry.items()})}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

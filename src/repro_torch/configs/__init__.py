@@ -4,7 +4,8 @@ from repro_torch.configs import (
     deepseek_7b, deepseek_v3_671b, granite_moe_3b_a800m, internvl2_76b, qwen1_5_110b,
     tinyllama_1_1b, whisper_medium, xlstm_125m, yi_6b, zamba2_2_7b,
 )
-from repro_torch.configs.base import ModelConfig, smoke_variant
+from repro_torch.configs.base import ModelConfig, ShapeConfig, smoke_variant
+from repro_torch.configs.shapes import ALL_SHAPES, SHAPES, applicable
 
 ARCHS = {
     m.CONFIG.arch: m.CONFIG
@@ -12,4 +13,5 @@ ARCHS = {
               granite_moe_3b_a800m, whisper_medium, xlstm_125m, internvl2_76b, zamba2_2_7b)
 }
 
-__all__ = ["ARCHS", "ModelConfig", "smoke_variant"]
+__all__ = ["ARCHS", "SHAPES", "ALL_SHAPES", "ModelConfig", "ShapeConfig", "smoke_variant",
+           "applicable"]

@@ -1,4 +1,5 @@
-"""Model configuration dataclass (counterpart of ``repro.configs.base``)."""
+"""Model and shape configuration dataclasses (counterpart of
+``repro.configs.base``)."""
 
 from __future__ import annotations
 
@@ -68,6 +69,14 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

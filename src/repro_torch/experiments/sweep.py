@@ -20,6 +20,11 @@ each run takes the code path its reference run takes. The results carry the
 same keys and the same ``"run"`` metadata as the reference's, and the
 per-group checkpoints, the retries with backoff and the artifacts are the
 reference's too.
+
+The reference's ``hostdev.fake_host_devices`` (its sweep CLIs'
+``--fake-devices``) has no counterpart: all it does is set ``XLA_FLAGS``
+before JAX starts, to show the CPU as several XLA devices, and PyTorch has
+no such flag.
 """
 
 from __future__ import annotations

@@ -5,8 +5,9 @@ is ``csrc/flash_attention.cu``. Online softmax in f32 over KV blocks, an
 optional causal mask (top-left aligned: query i sees keys 0..i), a tail mask
 at ``sk_valid``, and GQA by ``h // g`` on the flat head index. The value
 head may be narrower than the query and key heads (MLA: 192 over 128). CUDA
-tensors go to the kernel; CPU tensors to the plain version below; any other
-device raises.
+tensors go to the kernel; CPU tensors to the plain version below; meta
+tensors (the dry run) get the output's shape and the kernel's operation count
+(``flash_flops``); any other device raises.
 
 Two layouts are taken: the reference kernel's (B·H, S, D), and the model's
 (B, S, H, D), which the kernel reads in place through strides (``ops.py``).
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -125,6 +127,66 @@ def _check(q, k, v, sk_valid):
         raise ValueError("q, k and v and each of their rows must be 16-byte aligned")
 
 
+def flash_flops(q_shape, v_shape, sk_valid: int, causal: bool) -> int:
+    """Operations one launch needs: per (query, key) pair the mask keeps, D
+    multiply-adds for the score and Dv for P·V, 2 operations each. Shapes
+    in either layout, (B·H, Sq, D) or (B, Sq, H, D); keys from ``sk_valid``
+    on are masked, and with ``causal`` query i keeps keys 0..i."""
+    sq, d, dv = q_shape[1], q_shape[-1], v_shape[-1]
+    rows = q_shape[0] * (q_shape[2] if len(q_shape) == 4 else 1)
+    m = min(sq, sk_valid)
+    pairs = m * (m + 1) // 2 + (sq - m) * sk_valid if causal else sq * sk_valid
+    return 2 * (d + dv) * rows * pairs
+
+
+def _kernel_view(t):
+    """The kernel's view of an operand, (B, S, H, D); (B·H, S, D) is B = 1."""
+    return t if t.dim() == 4 else t.unsqueeze(0).transpose(1, 2)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sk_valid: int,
+            causal: bool) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (checked by ``_check``), counted
+    in ``flash_attention_fwd.launches``."""
+    o = torch.empty(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
+    views = [_kernel_view(t) for t in (q, k, v, o)]
+    b, sq, h, d = views[0].shape
+    _, sk, hk, _ = views[1].shape
+    dv = views[2].shape[3]
+    strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
+    lib = _lib()
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    # the KV tiles as the kernel prepares them: split, transposed, in its layout
+    n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, dv, is_bf16)
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
+            strides, b, h, hk, sq, sk, d, dv, sk_valid, int(causal), is_bf16, d**-0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
+    flash_attention_fwd.launches += 1
+    return o
+
+
+# the launch as an operator of its own, so that dispatch modes see it: on the
+# meta device it gives the output's shape, and FlopCounterMode counts it by
+# flash_flops on the card and on meta alike
+_flash_op = torch.library.custom_op("repro_torch::flash_attention_fwd", _launch, mutates_args=(),
+                                    device_types="cuda")
+
+
+@_flash_op.register_fake
+def _flash_shape(q, k, v, sk_valid, causal):
+    return q.new_empty(q.shape[:-1] + (v.shape[-1],))
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _flash_op_flops(q_shape, k_shape, v_shape, sk_valid, causal, *args, **kwargs) -> int:
+    return flash_flops(q_shape, v_shape, sk_valid, causal)
+
+
 def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
     """Flash-attention forward.
 
@@ -133,7 +195,8 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     (B, Sk, Hk, Dv) -> (B, Sq, H, Dv), read in place. f32 or bf16, (D, Dv)
     in HEAD_DIMS on the card; the output is in q's dtype. Keys at positions
     >= ``sk_valid`` (default Sk) are masked. Sq and Sk are any lengths: the
-    kernel masks its ragged tiles itself.
+    kernel masks its ragged tiles itself. On the meta device (the dry run)
+    it checks the same and gives the output's shape.
 
     On the card the kernel's tiles are its own (128 query rows by
     ``kernel_block_k`` keys); ``block_q`` and ``block_k`` are the plain
@@ -154,34 +217,14 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, sk_valid=sk_valid, causal=causal,
                                          block_q=block_q, block_k=block_k)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_fwd runs on cuda or cpu (or meta), not {q.device}")
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.dim() != q.dim():
         raise ValueError(f"need q, k, v all (B·H, S, D) or all (B, S, H, D); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    o = torch.empty(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
-    # the kernel's view of every operand is (B, S, H, D); (B·H, S, D) is B = 1
-    views = [t if t.dim() == 4 else t.unsqueeze(0).transpose(1, 2) for t in (q, k, v, o)]
-    b, sq, h, d = views[0].shape
-    _, sk, hk, _ = views[1].shape
-    dv = views[2].shape[3]
-    sk_valid = sk if sk_valid is None else sk_valid
-    _check(*views[:3], sk_valid)
-    strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
-    lib = _lib()
-    is_bf16 = int(q.dtype == torch.bfloat16)
-    # the KV tiles as the kernel prepares them: split, transposed, in its layout
-    n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, dv, is_bf16)
-    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
-            strides, b, h, hk, sq, sk, d, dv, sk_valid, int(causal), is_bf16, d**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
-    flash_attention_fwd.launches += 1
-    return o
+    sk_valid = k.shape[1] if sk_valid is None else sk_valid
+    _check(*(_kernel_view(t) for t in (q, k, v)), sk_valid)
+    return _flash_op(q, k, v, sk_valid, causal)
 
 
 flash_attention_fwd.launches = 0

@@ -7,8 +7,9 @@ does not depend on the carry (the f32 casts, mLSTM's log forget gate and
 scaled keys, Mamba2's decay ``exp(a·dt)`` and ``dt·x``) is computed for every
 step at once before the loop: the same elementwise operations on the same
 values, so the same results. Only the carry's update runs per step, each
-step's output is kept in a list and stacked once. Decode is one step of the
-same loop from the carried state; there is no KV cache.
+step's output is kept in a list and stacked once: the one loop, ``_scan``,
+of all three. Decode is one step of the same loop from the carried state;
+there is no KV cache.
 
 ``jax.nn.softplus`` is ``logaddexp(x, 0)``; ``_softplus`` computes it so
 (``F.softplus`` takes a threshold shortcut and rounds otherwise). The scan's
@@ -24,6 +25,20 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
+
+
+def _scan(step, carry, xs):
+    """``carry, y = step(carry, x_t)`` for each t, ``x_t`` the t-th slice of
+    every tensor of ``xs`` (time on dim 0; views shaped for a step's
+    broadcasts, so that a step issues only its arithmetic). Returns (carry,
+    the ys stacked on dim 1, the time dim of a (B, S, ...) output). A step
+    broadcasts over any leading dims of its inputs and carry, which lets the
+    dry run (``launch/dryrun.py``) count T steps through a batched stand-in."""
+    ys = []
+    for x_t in zip(*(x.unbind(0) for x in xs)):
+        carry, y = step(carry, x_t)
+        ys.append(y)
+    return carry, torch.stack(ys, dim=1)
 
 
 def _softplus(x):
@@ -91,11 +106,10 @@ def _mlstm_scan(q32, k_s, v32, i_raw, log_f, C, n, m):
     f32 keys times Dh^-0.5; i_raw, log_f: (B, S, H). Returns (h (B, S, H,
     Dh) f32, (C, n, m)). Each step's inputs are views taken before the loop,
     shaped for their broadcasts, so that a step issues only its arithmetic."""
-    hs = []
-    q_steps = q32.transpose(0, 1).contiguous()  # each step's q a contiguous (B, H, Dh)
-    steps = zip(q_steps[..., None].unbind(0), k_s.unbind(1), k_s[:, :, :, None, :].unbind(1),
-                v32[..., None].unbind(1), i_raw.unbind(1), log_f.unbind(1))
-    for q_t, k_t, k_row, v_col, i_t, lf_t in steps:
+
+    def step(carry, xt):
+        C, n, m = carry
+        q_t, k_t, k_row, v_col, i_t, lf_t = xt
         lf_m = lf_t + m
         m_new = torch.maximum(lf_m, i_t)
         i_g = torch.exp(i_t - m_new)[..., None]
@@ -103,9 +117,13 @@ def _mlstm_scan(q32, k_s, v32, i_raw, log_f, C, n, m):
         C = f_g[..., None] * C + i_g[..., None] * (v_col * k_row)
         n = f_g * n + i_g * k_t
         denom = torch.clamp(torch.abs(n[..., None, :] @ q_t), min=1.0)
-        hs.append((C @ q_t) / denom)
-        m = m_new
-    return torch.stack(hs, dim=1)[..., 0], (C, n, m)
+        return (C, n, m_new), (C @ q_t) / denom
+
+    q_steps = q32.transpose(0, 1).contiguous()  # each step's q a contiguous (B, H, Dh)
+    xs = (q_steps[..., None], *(t.transpose(0, 1) for t in (
+        k_s, k_s[:, :, :, None, :], v32[..., None], i_raw, log_f)))
+    (C, n, m), hs = _scan(step, (C, n, m), xs)
+    return hs[..., 0], (C, n, m)
 
 
 def mlstm_apply(p, x, cfg: ModelConfig, state=None):
@@ -177,10 +195,11 @@ def slstm_apply(p, x, cfg: ModelConfig, state=None):
     else:
         c, n, m, h_prev = state["c"], state["n2"], state["m2"], state["h"]
     r = p["r"].float()
-    hs = []
-    for wx_t in wx.unbind(1):
-        rec = torch.einsum("bhd,hde->bhe", h_prev.reshape(b, heads, dh), r).reshape(b, 4 * d)
-        g = wx_t + rec + p["b"]
+
+    def step(carry, xt):
+        c, n, m, h_prev = carry
+        rec = torch.einsum("...hd,hde->...he", h_prev.unflatten(-1, (heads, dh)), r).flatten(-2)
+        g = xt[0] + rec + p["b"]
         i_raw, f_raw, z_raw, o_raw = torch.split(g, d, dim=-1)
         lf_m = -_softplus(-f_raw) + m
         m_new = torch.maximum(lf_m, i_raw)
@@ -189,9 +208,10 @@ def slstm_apply(p, x, cfg: ModelConfig, state=None):
         c = f_g * c + i_g * torch.tanh(z_raw)
         n = f_g * n + i_g
         h_prev = torch.sigmoid(o_raw) * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(h_prev)
-    hs = _group_norm(torch.stack(hs, dim=1).to(x.dtype), heads)
+        return (c, n, m_new, h_prev), h_prev
+
+    (c, n, m, h_prev), hs = _scan(step, (c, n, m, h_prev), (wx.transpose(0, 1),))
+    hs = _group_norm(hs.to(x.dtype), heads)
     y = L.matmul(hs * p["gn"], p["w_down"])
     return y, {"c": c, "n2": n, "m2": m, "h": h_prev}
 
@@ -257,16 +277,18 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None):
     dtx = dt[..., None] * xc32  # (B, S, H, P)
     S = (torch.zeros((b, h, ph, n), dtype=torch.float32, device=x.device) if state is None
          else state["S"])
-    ys = []
-    # each step's inputs as views shaped for their broadcasts, taken before the
-    # loop; the read-out S·c is one (B, H·P, N) @ (B, N, 1) product (a
-    # broadcast of c over the heads would copy it every step)
-    steps = zip(decay[..., None, None].unbind(1), dtx[..., None].unbind(1),
-                bmat[:, :, None, None, :].unbind(1), cmat[..., None].unbind(1))
-    for decay_t, dtx_t, b_t, c_t in steps:
-        S = decay_t * S + dtx_t * b_t
-        ys.append(torch.bmm(S.view(b, h * ph, n), c_t))
-    y = torch.stack(ys, dim=1).view(b, s, h, ph)
+
+    # the read-out S·c is one (B, H·P, N) @ (B, N, 1) product (a broadcast of
+    # c over the heads would copy it every step)
+    def step(carry, xt):
+        decay_t, dtx_t, b_t, c_t = xt
+        S = decay_t * carry[0] + dtx_t * b_t
+        return (S,), S.flatten(-3, -2) @ c_t
+
+    xs = tuple(t.transpose(0, 1) for t in (decay[..., None, None], dtx[..., None],
+                                           bmat[:, :, None, None, :], cmat[..., None]))
+    (S,), ys = _scan(step, (S,), xs)
+    y = ys.view(b, s, h, ph)
     y = y + p["d_skip"][:, None] * xc32
     y = _group_norm(y.reshape(b, s, di).to(x.dtype), h)
     y = L.matmul(y * p["gn"] * F.silu(z), p["out_proj"])

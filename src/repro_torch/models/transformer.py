@@ -68,9 +68,10 @@ def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
 def train_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
     """Attention of a training forward (causal unless told otherwise): on the
     card, with no window, the flash kernel through its autograd entry (whose
-    backward recomputes the plain attention); else the plain blockwise
-    attention, as the reference computes it (the CPU, and sliding windows)."""
-    if cfg.window == 0 and q.device.type == "cuda":
+    backward recomputes the plain attention), and on the meta device its
+    stand-in; else the plain blockwise attention, as the reference computes
+    it (the CPU, and sliding windows)."""
+    if cfg.window == 0 and q.device.type != "cpu":
         return flash_ops.flash_attention_train(q, k, v, causal=causal)
     return attn.blockwise_attention(q, k, v, causal=causal, window=cfg.window)
 
@@ -194,8 +195,9 @@ def prefill_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
     """Attention over the prompt (causal unless told otherwise; whisper's
     encoder and cross-attention are not): the flash kernel on the card when
     the model has no window, else the plain blockwise attention (on the CPU,
-    as the reference computes it, and for sliding windows)."""
-    if cfg.window == 0 and q.device.type == "cuda":
+    as the reference computes it, and for sliding windows; the meta device
+    takes the kernel's stand-in)."""
+    if cfg.window == 0 and q.device.type != "cpu":
         return flash_ops.flash_attention(q, k, v, causal=causal)
     return attn.blockwise_attention(q, k, v, causal=causal, window=cfg.window)
 

@@ -276,6 +276,9 @@ def test_cuda_tensors_reach_the_kernel(monkeypatch):
                            "flash_attention_scratch_bytes": staticmethod(fake_scratch_bytes)})
     monkeypatch.setattr(fa, "_lib", lambda: lib)
     monkeypatch.setattr(fa, "flash_attention_fwd_plain", no_plain)
+    # the fake CUDA tensors would take the launch operator's shape stand-in:
+    # call the launch it wraps
+    monkeypatch.setattr(fa, "_flash_op", fa._launch)
     monkeypatch.setattr(torch.cuda, "device", lambda d: torch.device(d))
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 7}))
     monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
@@ -321,6 +324,31 @@ def test_cuda_tensors_reach_the_kernel(monkeypatch):
 
 
 def test_other_devices_raise():
-    q = torch.empty(1, 4, 2, 16, device="meta")
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        flash_attention(q, q, q)
+    """A device other than the card, the CPU and meta raises; on meta (the
+    dry run) the entry gives the output's shape, and the v head's width."""
+    with FakeTensorMode():
+        q = torch.empty(1, 4, 2, 16, device="xpu")
+        with pytest.raises(ValueError, match="cuda or cpu"):
+            flash_attention(q, q, q)
+    q = torch.empty(1, 4, 2, 192, device="meta")
+    o = flash_attention(q, q, torch.empty(1, 4, 2, 128, device="meta"))
+    assert o.device.type == "meta" and o.shape == (1, 4, 2, 128)
+
+
+def test_shape_stand_in_counts_no_launch(monkeypatch):
+    """Fake CUDA tensors take the launch operator's shape stand-in, as meta
+    tensors do: no kernel runs, so ``launches`` stays as it was."""
+    def no_lib():
+        raise AssertionError("the kernel's library was reached")
+
+    monkeypatch.setattr(fa, "_lib", no_lib)
+    monkeypatch.setattr(torch.Tensor, "data_ptr", lambda self: 0)
+    before = fa.flash_attention_fwd.launches
+    with FakeTensorMode():
+        q = torch.empty(2, 40, 8, 64, device="cuda")
+        k = torch.empty(2, 40, 2, 64, device="cuda")
+        o = flash_attention(q, k, k.clone())
+    assert o.device.type == "cuda" and o.shape == q.shape
+    q = torch.empty(2, 40, 8, 64, device="meta")
+    assert flash_attention(q, q, q).shape == q.shape
+    assert fa.flash_attention_fwd.launches == before
