@@ -156,12 +156,34 @@ Phases, one JSON line each:
               what kernels allocate inside), max_memory_reserved, achieved
               TFLOP/s and the flash launches; all under the caching allocator's
               default settings, as the port's entry points run
+ 16. parallel the parallel layer at runtime over a one-rank NCCL group on the card
+              (one H100 holds one rank; several ranks are held on the CPU over
+              gloo by tests/test_torch_parallel.py and test_torch_runtime.py):
+              (a) the group started from a file:// rendezvous under build/, and
+              launch.mesh.make_mesh((1, 1), ("data", "model")) over it; (b)
+              launch.train.run of tinyllama-1.1b at the train phase's shape (bf16,
+              remat, batch 4 x 2048), 4 steps with mesh=None before the group
+              starts and 4 on the mesh: losses and final parameters bit-equal,
+              44 flash launches a step, ms per step of both; (c) moe.moe_apply_ep
+              at granite-moe-3b-a800m's widths (40 experts top-8, d_model 1536,
+              moe_d_ff 512) on 4 x 2048 tokens, tp = 1, forward and backward,
+              against moe.moe_apply at capacity factor E / K where neither drops
+              (checked from the routing), f32 within 1e-5 and bf16 within 2e-2 of
+              each tensor's largest entry; ms of both and the all_to_all share;
+              (d) compression.compressed_allreduce over each gradient leaf of one
+              tinyllama-1.1b step, without and with error feedback: the mean
+              bit-equal to decompress(compress(g)), the residual to the CPU's; ms
+              and the bytes on the wire against f32; (e) experiments.sweep's
+              run_sweep on devices=("cuda:0", "cuda:0") (a thread each) for the
+              canonical grid's RARO group at 16,384 requests, identical to one
+              device
 Then the `kernels` line and, last, the `ok` line.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import math
@@ -178,6 +200,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.flop_counter import FlopCounterMode
 
 ROOT = Path(__file__).resolve().parent
@@ -202,11 +225,13 @@ from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E40
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
-from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    init_distributed, make_host_mesh, make_mesh, set_mesh)
 from repro_torch.models import (  # noqa: E402
     attention as attn, base, encdec, hybrid, moe, registry, transformer, xlstm)
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
+from repro_torch.parallel import compression  # noqa: E402
 from repro_torch.training import optim, train_step  # noqa: E402
 from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
 from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
@@ -1437,12 +1462,12 @@ def train_attention_check(dev, smi):
     return out
 
 
-def train_run(dev, cfg, smi, phase="train"):
-    """(c) The main path: launch.train.run at full width and depth. Each step
-    is timed between two synchronizes and its flash launches counted; the
-    counts are set to 0 just before the run and read just after it. Then one
-    profiled step. Lines go out under ``phase``."""
-    records = []
+@contextlib.contextmanager
+def recorded_steps(records):
+    """While active, each step of a ``train_step.make_train_step`` step
+    function (``launch.train.run`` builds one) is timed between two
+    synchronizes, and its ms, flash launches, loss and grad norm are appended
+    to ``records``. Yields the unwrapped ``make_train_step``."""
     make = train_step.make_train_step
 
     def recording(*a, **kw):
@@ -1463,14 +1488,24 @@ def train_run(dev, cfg, smi, phase="train"):
 
     train_step.make_train_step = recording
     try:
+        yield make
+    finally:
+        train_step.make_train_step = make
+
+
+def train_run(dev, cfg, smi, phase="train"):
+    """(c) The main path: launch.train.run at full width and depth. Each step
+    is timed between two synchronizes and its flash launches counted; the
+    counts are set to 0 just before the run and read just after it. Then one
+    profiled step. Lines go out under ``phase``."""
+    records = []
+    with recorded_steps(records) as make:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         params, hist = train.run(cfg.arch, smoke=False, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
                                  seq=TRAIN_SEQ, log_every=1, device=dev)
         torch.cuda.synchronize()
         n = counts()
-    finally:
-        train_step.make_train_step = make
     peak = torch.cuda.max_memory_allocated()
     per_step = 2 * cfg.n_layers  # the forward, and remat's recompute in the backward
     check(len(records) == TRAIN_STEPS and [l for _, l in hist] == [r["loss"] for r in records],
@@ -2571,6 +2606,247 @@ def phase_sweep(dev, b_cfg, b_state):
     emit("sweep", kernel_launches=counts())
 
 
+# --------------------------------------------------------------------------
+# the parallel layer at runtime, on a one-rank NCCL group
+# --------------------------------------------------------------------------
+PARALLEL_STEPS = 4  # (b): full-width steps of each run
+PARALLEL_DIR = ROOT / "build" / "chip_smoke_parallel"  # git-ignored: the group's rendezvous file
+# (c): granite's MoE layer at its published widths on 4 x 2048 tokens, at the
+# capacity factor E / K, where neither dispatch can drop (every expert holds
+# all tokens); tolerances relative to each tensor's largest entry, the kernels'
+EP_TOKENS = (4, PROMPT)
+EP_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+EP_ITERS = 5  # timed forward + backward calls of each dispatch
+# (e): the sweep phase's canonical grid cut to its RARO group (four runs) and
+# from 80,000 requests to 16,384, so that two sweeps of it take seconds
+PARALLEL_SWEEP = dict(policies=(ssd_geometry.RARO,), n_requests=16_384)
+
+
+def _rel_err(a, b):
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def parallel_train(dev, cfg, mesh=None):
+    """(b) ``launch.train.run`` at the train phase's shape, ``PARALLEL_STEPS``
+    steps: (params, hist, step records, launch counts of the run)."""
+    records = []
+    with recorded_steps(records):
+        reset_counts()
+        params, hist = train.run(cfg.arch, smoke=False, steps=PARALLEL_STEPS, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ, log_every=1, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        n = counts()
+    return params, hist, records, n
+
+
+def moe_fwd_bwd(fn, p, x, dy, daux):
+    """y, aux and the gradients (x's, then p's leaves) of
+    ``<y, dy> + daux * aux`` for ``fn(p, x) -> (y, aux)``."""
+    leaves = [t.detach().requires_grad_() for t in base.tree_leaves(p)]
+    xr = x.detach().requires_grad_()
+    y, aux = fn(base.tree_unflatten(p, leaves), xr)
+    ((y.float() * dy).sum() + daux * aux).backward()
+    return [y.detach(), aux.detach(), xr.grad] + [t.grad for t in leaves]
+
+
+def timed_ms(fn, n_iter):
+    """Mean ms of ``fn()`` back to back, CUDA events around the loop."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n_iter):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n_iter
+
+
+@contextlib.contextmanager
+def all_to_all_events(events):
+    """While active, each ``torch.distributed.all_to_all_single`` call is
+    bracketed by two CUDA events appended to ``events``."""
+    real = dist.all_to_all_single
+
+    def timed(*a, **kw):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    dist.all_to_all_single = timed
+    try:
+        yield
+    finally:
+        dist.all_to_all_single = real
+
+
+def parallel_ep(dev, mesh):
+    """(c) ``moe_apply_ep`` on the one-rank mesh (tp = 1) against
+    ``moe_apply`` at granite's widths, forward and backward, f32 and bf16."""
+    cfg = granite_moe_3b_a800m.CONFIG
+    cfg = cfg.with_(capacity_factor=cfg.n_experts / cfg.top_k)
+    b, s = EP_TOKENS
+    n, e, k = b * s, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p_spec = base.materialize(moe.moe_specs(cfg), gen, device=dev)  # router f32, experts bf16
+    x0 = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    dy = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    daux = 2.0
+
+    # nothing drops: each expert's load within moe_apply's capacity and within
+    # moe_apply_ep's per-expert rows, and every assignment within its send buffer
+    logits = x0.reshape(n, -1) @ p_spec["router"]
+    _, idx = port_ops.top_k(torch.softmax(logits, -1), k)
+    load = int(torch.bincount(idx.reshape(-1).long(), minlength=e).max())
+    cap_send = -(-int(n * k * cfg.capacity_factor) // 8) * 8  # moe_apply_ep's at tp = 1
+    cap_e = -(-(-(-cap_send // e)) // 8) * 8
+    check(load <= min(moe.capacity(cfg, n), cap_e) and n * k <= cap_send,
+          f"(c) drops: the largest expert load {load}, capacities {moe.capacity(cfg, n)}, "
+          f"{cap_e}, send {cap_send} for {n * k} assignments")
+
+    def ep(p, x):
+        return moe.moe_apply_ep(p, x, cfg, mesh)
+
+    def plain(p, x):
+        return moe.moe_apply(p, x, cfg)
+
+    names = ["y", "aux", "x"] + list(base.tree_paths(p_spec))
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        p = p_spec if dt == torch.bfloat16 else base.tree_map(lambda t: t.float(), p_spec)
+        x = x0.to(dt)
+        got = moe_fwd_bwd(ep, p, x, dy, daux)
+        want = moe_fwd_bwd(plain, p, x, dy, daux)
+        errs = {nm: _rel_err(g, w) for nm, g, w in zip(names, got, want)}
+        check(all(math.isfinite(v) and v <= EP_TOL[dt] for v in errs.values()),
+              f"(c) moe_apply_ep vs moe_apply, {dt}: {errs}")
+        del got, want
+        ep_ms = timed_ms(lambda: moe_fwd_bwd(ep, p, x, dy, daux), EP_ITERS)
+        plain_ms = timed_ms(lambda: moe_fwd_bwd(plain, p, x, dy, daux), EP_ITERS)
+        events = []
+        torch.cuda.synchronize()
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with all_to_all_events(events):
+            a.record()
+            moe_fwd_bwd(ep, p, x, dy, daux)
+            z.record()
+        z.synchronize()
+        a2a_ms = sum(e0.elapsed_time(e1) for e0, e1 in events)
+        out[str(dt).replace("torch.", "")] = dict(
+            rel_err=errs, tol=EP_TOL[dt], ep_fwd_bwd_ms=ep_ms, moe_apply_fwd_bwd_ms=plain_ms,
+            all_to_all_calls=len(events), all_to_all_ms=a2a_ms,
+            all_to_all_share=a2a_ms / a.elapsed_time(z))
+    return dict(arch=cfg.arch, d_model=cfg.d_model, n_experts=e, top_k=k, moe_d_ff=cfg.moe_d_ff,
+                tokens=list(EP_TOKENS), capacity_factor=cfg.capacity_factor, tp=1,
+                largest_expert_load=load, capacities=dict(moe_apply=moe.capacity(cfg, n),
+                                                          cap_send=cap_send, cap_e=cap_e),
+                dropped=0, **out)
+
+
+def parallel_compressed(dev, params, cfg, mesh):
+    """(d) ``compressed_allreduce`` over "data" of the one-rank mesh, over each
+    gradient leaf of one tinyllama-1.1b step (batch 1 x 2048, the run's final
+    parameters), twice: without error feedback, then with the first call's
+    residual. The mean must equal ``decompress(compress(g))`` bit for bit, and
+    each residual the CPU's."""
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(0).items()}
+    _, grads = train_step.value_and_grad(registry.get_api(cfg).loss_fn, params, batch)
+    leaves = base.tree_leaves(grads)
+    del grads
+    errs = [None] * len(leaves)
+    out = {}
+    with set_mesh(mesh):
+        for label in ("no_err", "err"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [compression.compressed_allreduce(g, e, "data") for g, e in zip(leaves, errs)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for g, e, (mean, new_err) in zip(leaves, errs, res):
+                q, scale, _ = compression.compress(g, e)
+                check(torch.equal(mean, compression.decompress(q, scale)),
+                      f"(d) {label}: the one-rank mean is not decompress(compress(g))")
+                _, _, cpu_err = compression.compress(g.cpu(), None if e is None else e.cpu())
+                check(torch.equal(new_err.cpu(), cpu_err), f"(d) {label}: the residual != CPU's")
+            errs = [new_err for _, new_err in res]
+            out[f"{label}_ms"] = ms
+            del res
+    numel = sum(g.numel() for g in leaves)
+    return dict(leaves=len(leaves), elements=numel, wire_bytes=numel + 4 * len(leaves),
+                f32_bytes=4 * numel, wire_over_f32=(numel + 4 * len(leaves)) / (4 * numel),
+                mean_bit_equal=True, residual_equals_cpu=True, **out)
+
+
+def parallel_sweep():
+    """(e) The sweep's RARO group (``PARALLEL_SWEEP``'s cut) on two entries
+    of the card, a thread each, against one device."""
+    spec = replace(raro_ssd.tail_latency_sweep(), **PARALLEL_SWEEP)
+    t0 = time.perf_counter()
+    one = ssd_sweep.run_sweep(spec)
+    t1 = time.perf_counter()
+    two = ssd_sweep.run_sweep(spec, devices=("cuda:0", "cuda:0"))
+    t2 = time.perf_counter()
+    ssd_sweep.assert_results_identical(one, two)
+    return dict(scenario=spec.scenario, runs=len(one), n_requests=spec.n_requests,
+                cut="the RARO group alone; 80,000 requests -> 16,384", one_device_s=t1 - t0,
+                two_entries_s=t2 - t1, identical=True)
+
+
+def phase_parallel(dev, cfg, smi):
+    """The parallel layer at runtime on the card (see the module docstring,
+    phase 16). Returns the flash launches of (b)'s mesh run."""
+    # (b) first without a group: mesh=None inside one would build the (1, 1) mesh
+    t_phase = time.perf_counter()
+    p_one, h_one, r_one, _ = parallel_train(dev, cfg)
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    PARALLEL_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    pdev = init_distributed(dev, init_method=f"file://{PARALLEL_DIR / 'rendezvous'}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), pdev)
+        start_s, backend = time.perf_counter() - t0, dist.get_backend()
+        p_mesh, h_mesh, r_mesh, n = parallel_train(dev, cfg, mesh)
+        per_step = 2 * cfg.n_layers
+        check(h_mesh == h_one and all(torch.equal(a, b) for a, b in zip(
+            base.tree_leaves(p_mesh), base.tree_leaves(p_one))),
+              f"(b) the one-rank mesh run differs from mesh=None: {h_mesh} vs {h_one}")
+        check(all(r["flash_launches"] == per_step for r in r_mesh)
+              and n["flash_attention_fwd"] == per_step * PARALLEL_STEPS,
+              f"(b) flash launches {[r['flash_launches'] for r in r_mesh]}, total {n}")
+        del p_one
+        train_line = dict(arch=cfg.arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=PARALLEL_STEPS,
+                          dtype=str(cfg.dtype).replace("torch.", ""), remat=cfg.remat,
+                          losses=[l for _, l in h_mesh], bit_equal=True,
+                          flash_launches_per_step=per_step, launches=n,
+                          ms_per_step_after_first={
+                              name: sum(r["ms"] for r in rs[1:]) / (len(rs) - 1)
+                              for name, rs in (("mesh_none", r_one), ("mesh_1x1", r_mesh))},
+                          first_step_ms={"mesh_none": r_one[0]["ms"],
+                                         "mesh_1x1": r_mesh[0]["ms"]})
+        wall = {"b": time.perf_counter() - t_phase}
+        t0 = time.perf_counter()
+        compressed = parallel_compressed(dev, p_mesh, cfg, mesh)
+        del p_mesh
+        torch.cuda.empty_cache()
+        wall["d"], t0 = time.perf_counter() - t0, time.perf_counter()
+        ep = parallel_ep(dev, mesh)
+        wall["c"], t0 = time.perf_counter() - t0, time.perf_counter()
+        sweep_line = parallel_sweep()
+        wall["e"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    emit("parallel", nvidia_smi=smi, backend=backend, world=1, mesh=dict(data=1, model=1),
+         group_start_s=start_s, b_train=train_line, c_moe_apply_ep=ep,
+         d_compressed_allreduce=compressed, e_sweep_two_entries=sweep_line,
+         wall_s=dict(wall, phase=time.perf_counter() - t_phase))
+    return n
+
+
 def _mean_row(rows):
     """One launch, averaged over the tiers timed: its times and its bound."""
     mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
@@ -2583,7 +2859,7 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
                          "(no path, serve, prefill, times, profile, train, moe, mla, families, "
-                         "dryrun, ssd or sweep phase)")
+                         "dryrun, ssd, sweep or parallel phase)")
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the families phase's frames and tokens")
     a = ap.parse_args()
@@ -2613,15 +2889,18 @@ def main():
         dryrun_launches = phase_dryrun(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
+        parallel_launches = phase_parallel(dev, cfg, smi)
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
         # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
-        # and training step (f32, 2 + 2 layers), and the dry run's cells (bf16)
+        # and training step (f32, 2 + 2 layers), the dry run's cells (bf16),
+        # and tinyllama's training on the one-rank mesh (bf16)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
                    **moe_launches, "mla_prefill": mla_launches,
                    "whisper_prefill": family_launches["whisper-medium"],
                    "whisper_train": family_launches["whisper_train"],
-                   "dryrun_cells": dryrun_launches["flash_attention_fwd"]}
+                   "dryrun_cells": dryrun_launches["flash_attention_fwd"],
+                   "parallel_train": parallel_launches["flash_attention_fwd"]}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())

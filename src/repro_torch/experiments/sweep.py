@@ -7,7 +7,10 @@ policy group's runs along a stacked run axis (``jax.vmap`` on one device,
 ``shard_map`` across several); here each run of a group runs in turn on one
 device: ``state.init_state`` seeded from the run's knobs, then
 ``engine.step_chunk`` over the trace's chunks with those knobs, then
-``engine.summarize``. The split of the axes is the reference's:
+``engine.summarize``. Over several devices a group's runs split into
+contiguous blocks, one per device, as ``shard_map`` splits the run axis, and
+each device runs its block in a thread of its own. The split of the axes is
+the reference's:
 
   per run (``RunKnobs``, 0-dim tensors on the run's device):
       seeds / scenario draws, ``r1``, ``r2_override``, ``initial_pe``,
@@ -33,6 +36,7 @@ import itertools
 import json
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field, replace
 from pathlib import Path
 
@@ -350,12 +354,13 @@ def run_sweep(spec: SweepSpec, threads: int = 4, verbose: bool = False,
     (mean + p50/p95/p99/p999 read latency, IOPS, capacity, ...) plus the
     run's metadata under ``"run"``, in the reference's run order.
 
-    ``devices`` is validated as the reference validates it (an int N,
-    ``"all"`` or a device sequence; see :func:`resolve_devices`), but the
-    runs execute on one device: a count that resolves above one raises
-    ``NotImplementedError`` rather than running on fewer devices than
-    asked (a multi-card sweep waits in ROADMAP.md, queue 1, with the
-    parallelism item).
+    ``devices`` selects the devices as the reference's does (an int N,
+    ``"all"`` or a device sequence; see :func:`resolve_devices`). Above one,
+    each policy group's runs split into contiguous blocks of
+    ``ceil(runs / devices)``, the reference's ``shard_map`` blocks without
+    its padding runs, and each device runs its block in its own thread; the
+    results come back in run order, equal to one device's (runs are
+    independent: no collective).
 
     Robustness (DESIGN.md §2D): ``resume_dir`` checkpoints each completed
     policy group to disk and deterministically resumes from matching
@@ -368,12 +373,6 @@ def run_sweep(spec: SweepSpec, threads: int = 4, verbose: bool = False,
     failed groups.
     """
     devs = resolve_devices(devices, device)  # validate before the trace-build cost
-    if len(devs) > 1:
-        raise NotImplementedError(
-            f"a sweep over {len(devs)} devices is not ported; it runs on one "
-            "device (devices=None or 1). A multi-card sweep waits in "
-            "ROADMAP.md, queue 1, with the parallelism item")
-    dev = devs[0]
     runs = expand(spec)
     kw = dict(spec.scenario_kw)
     if len(spec.seeds) > 1 and registry.is_seed_invariant(spec.scenario):
@@ -401,19 +400,30 @@ def run_sweep(spec: SweepSpec, threads: int = 4, verbose: bool = False,
         )
     if not open_loop:  # a mixed set of traces runs closed loop, as the reference's
         traces = {seed: {k: t[k] for k in ("lpn", "op")} for seed, t in traces.items()}
-    chunks: dict[int, list] = {}  # each seed's trace on the device, uploaded once
+    # each seed's trace on each device, uploaded once; one dict per device, so
+    # that no two threads share one
+    chunks: list[dict[int, list]] = [{} for _ in devs]
 
-    def run_group(group, cfg):
-        out = []
-        for r in group:
-            if r.seed not in chunks:
-                chunks[r.seed] = engine.trace_chunks(traces[r.seed], dev)
+    def run_block(block, cfg, i):
+        dev, out = devs[i], []
+        for r in block:
+            if r.seed not in chunks[i]:
+                chunks[i][r.seed] = engine.trace_chunks(traces[r.seed], dev)
             knobs = run_knobs(r, spec, open_loop, dev)
-            s = run_one(cfg, chunks[r.seed], has_writes, knobs, dev)
+            s = run_one(cfg, chunks[i][r.seed], has_writes, knobs, dev)
             m = engine.summarize(s, cfg, threads=threads)
             m["run"] = _run_meta(r, spec)
             out.append(m)
         return out
+
+    def run_group(group, cfg):
+        if len(devs) == 1:
+            return run_block(group, cfg, 0)
+        size = -(-len(group) // len(devs))
+        blocks = [group[i * size:(i + 1) * size] for i in range(len(devs))]
+        with ThreadPoolExecutor(len(devs)) as pool:
+            futures = [pool.submit(run_block, b, cfg, i) for i, b in enumerate(blocks) if b]
+            return [m for f in futures for m in f.result()]
 
     results = []
     failed = []
@@ -433,7 +443,7 @@ def run_sweep(spec: SweepSpec, threads: int = 4, verbose: bool = False,
                 continue
         if verbose:
             print(f"# sweep group policy={name}: {len(group)} runs one by one "
-                  f"on {dev}", flush=True)
+                  f"on {', '.join(map(str, devs))}", flush=True)
         group_results = None
         last_err = None
         delays = _retry_delays(max_retries, retry_backoff_s)

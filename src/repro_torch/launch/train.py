@@ -2,28 +2,44 @@
 
 Runs a real training loop on synthetic-but-learnable data with checkpoint
 rotation, async saves and crash-resume, on one card (or on the CPU when the
-caller asks for it). On the card the attention of every layer is the
-hand-written flash kernel, its gradient the plain attention's.
+caller asks for it), or data-parallel over a mesh of processes. On the card
+the attention of every layer is the hand-written flash kernel, its gradient
+the plain attention's.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 300 --batch 16 --seq 128 [--device cpu]
+  PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train ...
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, smoke_variant
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
+from repro_torch.launch.mesh import init_distributed, make_mesh, set_mesh
 from repro_torch.models import base, registry
+from repro_torch.parallel import sharding
 from repro_torch.training import optim
 from repro_torch.training import train_step as ts
+
+
+def _data_shard(mesh) -> tuple[int, int]:
+    """(this rank's index, their count) along the mesh's data axes, the
+    outermost first, as the ``batch`` rule splits a batch over them."""
+    index, count = 0, 1
+    for ax in sharding.data_axes(mesh):
+        index = index * mesh.shape[ax] + mesh.axis_index(ax)
+        count *= mesh.shape[ax]
+    return index, count
 
 
 def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
@@ -36,12 +52,33 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     generator seeded 0 on ``device`` (CUDA unless the caller names one) in
     the specs' own dtypes, bf16 for tinyllama, as the reference materializes
     them. With ``ckpt_dir`` it resumes from the newest checkpoint there,
-    saves every ``ckpt_interval`` steps and at the end. ``mesh`` is the
-    reference's device mesh; the port runs on one card and takes none."""
-    if mesh is not None:
-        raise NotImplementedError("the port trains on one card; meshes wait for the multi-card "
-                                  "slice (ROADMAP.md, queue 1)")
-    dev = resolve_device(device)
+    saves every ``ckpt_interval`` steps and at the end.
+
+    ``mesh`` (a ``launch.mesh.ProcessMesh``; its device is the run's) trains
+    data-parallel over its data axes; without one inside a started process
+    group, the reference's (world, 1) ("data", "model") mesh. Every rank
+    draws the same parameters, takes its contiguous rows of each global
+    batch (``batch`` must divide by the data axes), and each step averages
+    the gradients and the loss over them in one all-reduce
+    (``train_step.make_train_step``); ``hist`` holds the global mean loss.
+    The steps run under ``set_mesh``, so a model axis above 1 sends the MoE
+    layers through ``moe.moe_apply_ep``; every other parameter stays
+    replicated and each model rank computes it alike. (The reference places
+    the dense layers' parameters over "model" by the sharding rules, for
+    GSPMD's tensor parallelism; that placement is not ported.) Rank 0 writes
+    the checkpoints, and every rank restores the same step."""
+    if mesh is None and dist.is_initialized():
+        mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"), device)
+    if mesh is None:
+        dev, shard, n_shards = resolve_device(device), 0, 1
+    else:
+        dev = mesh.device
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device {device} is not the mesh's ({dev})")
+        shard, n_shards = _data_shard(mesh)
+        if batch % n_shards:
+            raise ValueError(f"batch {batch} does not split over {n_shards} data ranks")
+    writer = mesh is None or dist.get_rank() == 0
     if cfg is None:
         cfg = smoke_variant(ARCHS[arch]) if smoke else ARCHS[arch]
 
@@ -52,7 +89,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     opt_state = optim.init(params)
 
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch))
-    step_fn = ts.make_train_step(cfg, ocfg, microbatches=microbatches)
+    rows = slice(shard * batch // n_shards, (shard + 1) * batch // n_shards)
+    step_fn = ts.make_train_step(cfg, ocfg, microbatches=microbatches, mesh=mesh)
 
     mgr = CheckpointManager(ckpt_dir, interval=ckpt_interval) if ckpt_dir else None
     start = 0
@@ -60,25 +98,31 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
         restored = mgr.restore_latest((params, opt_state), device=dev)
         if restored is not None:
             start, (params, opt_state), _ = restored
-            print(f"resumed from step {start}")
+            if writer:
+                print(f"resumed from step {start}")
 
     hist = []
     t0 = time.time()
-    for step in range(start, steps):
-        b = {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(step).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, b)
-        if step % log_every == 0 or step == steps - 1:
-            loss = float(metrics["loss"])
-            hist.append((step, loss))
-            print(f"step {step:5d} loss {loss:.4f} gnorm "
-                  f"{float(metrics['grad_norm']):.3f} "
-                  f"({(time.time()-t0)/max(step-start+1,1)*1000:.0f} ms/step)",
-                  flush=True)
-        if mgr is not None and mgr.should_save(step):
-            mgr.save(step, (params, opt_state))
+    with set_mesh(mesh):
+        for step in range(start, steps):
+            b = {k: torch.from_numpy(v[rows]).to(dev) for k, v in data.batch_at(step).items()}
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            if step % log_every == 0 or step == steps - 1:
+                loss = float(metrics["loss"])
+                hist.append((step, loss))
+                if writer:
+                    print(f"step {step:5d} loss {loss:.4f} gnorm "
+                          f"{float(metrics['grad_norm']):.3f} "
+                          f"({(time.time()-t0)/max(step-start+1,1)*1000:.0f} ms/step)",
+                          flush=True)
+            if writer and mgr is not None and mgr.should_save(step):
+                mgr.save(step, (params, opt_state))
     if mgr is not None:
-        mgr.save(steps, (params, opt_state))
-        mgr.wait()
+        if writer:
+            mgr.save(steps, (params, opt_state))
+            mgr.wait()
+        if mesh is not None:  # every rank returns once the final save is whole
+            dist.barrier()
     return params, hist
 
 
@@ -95,10 +139,18 @@ def main():
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     a = ap.parse_args()
-    _, hist = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
-                  microbatches=a.microbatches, ckpt_dir=a.ckpt_dir, lr=a.lr, device=a.device)
+    device = a.device
+    if "WORLD_SIZE" in os.environ:  # started by torchrun: one process per device
+        device = init_distributed(a.device)
+    try:
+        _, hist = run(a.arch, smoke=a.smoke, steps=a.steps, batch=a.batch, seq=a.seq,
+                      microbatches=a.microbatches, ckpt_dir=a.ckpt_dir, lr=a.lr, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     first, last = hist[0][1], hist[-1][1]
-    print(f"loss {first:.3f} -> {last:.3f}")
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"loss {first:.3f} -> {last:.3f}")
 
 
 if __name__ == "__main__":

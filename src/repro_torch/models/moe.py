@@ -6,11 +6,12 @@ Dispatch is sort-based with capacity (MegaBlocks-style dense buffers):
 assignments are stably sorted by expert, placed into an (E, C, D) buffer
 (capacity drop: an expert keeps its first C assignments in token order),
 run through the experts as batched products, and combined by router
-weight. The reference's expert-parallel dispatch (``moe_apply_ep``, a
-``shard_map`` over a mesh) is the multi-card slice's (ROADMAP.md, queue 1);
-on one card ``_moe_ffn`` is ``moe_apply``, as the reference's is without a
-mesh. With ``cfg.mla`` each layer's attention is ``models/mla.py``'s, and
-the cache holds its latents (c_kv, k_rope) in place of K and V.
+weight. Under a mesh with a model axis above 1 (``launch.mesh.set_mesh``),
+``_moe_ffn`` takes the expert-parallel dispatch ``moe_apply_ep`` where the
+reference takes its ``shard_map``: tokens split over "model", routed to
+their experts' rank by ``all_to_all``. With ``cfg.mla`` each layer's
+attention is ``models/mla.py``'s, and the cache holds its latents (c_kv,
+k_rope) in place of K and V.
 
 Layers are Python lists (``moe_layers``, ``dense_layers``) where the
 reference stacks them for ``lax.scan``; the KV cache keeps its stacked
@@ -28,11 +29,13 @@ import torch.nn.functional as F
 
 from repro_torch import ops
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as T
-from repro_torch.models.base import ParamSpec
+from repro_torch.models.base import ParamSpec, tree_map
+from repro_torch.parallel import collectives as C
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -53,6 +56,58 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return -(-c // 8) * 8  # pad for tiling
 
 
+def _slots(dest, n_dest: int, cap: int):
+    """Capacity slots of a sort-based dispatch. ``dest`` holds each
+    assignment's destination in ``[0, n_dest)`` (``n_dest``: none, dropped);
+    the assignments are stably sorted by destination and each destination
+    keeps its first ``cap``. Returns, in ``dest``'s layout, each one's slot
+    ``dest * cap + rank`` (``n_dest * cap`` where it is dropped). No step
+    reads a value back to the host."""
+    flat = dest.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    sorted_d = flat[order]
+    seg = torch.searchsorted(sorted_d, torch.arange(n_dest, device=flat.device))
+    rank = (torch.arange(flat.shape[0], device=flat.device)
+            - seg[torch.clamp(sorted_d, max=n_dest - 1)])
+    pos = torch.empty_like(order).scatter_(0, order, rank)
+    keep = (flat < n_dest) & (pos < cap)
+    return torch.where(keep, flat * cap + pos, n_dest * cap).reshape(dest.shape)
+
+
+def _route(xf, router, k: int):
+    """The router's f32 probabilities (N, E) and each token's top-k experts
+    (int32) with their weights renormalized to sum to 1."""
+    probs = torch.softmax(L.matmul(xf.float(), router).float(), dim=-1)
+    w, idx = ops.top_k(probs, k)
+    return probs, w / w.sum(-1, keepdim=True), idx
+
+
+def _experts(hb, w_in, w_gate, w_out, dtype):
+    """The gated expert FFNs over their rows, (E, C, D) -> (E, C, D), as
+    three batched products."""
+    h = L.matmul(hb, w_in)
+    g = L.matmul(hb, w_gate)
+    return L.matmul((h * F.silu(g)).to(dtype), w_out)
+
+
+def _combine(rows, slot, w, order):
+    """Each token's K output rows ``rows[slot]`` (zero where ``slot`` is past
+    the rows: dropped) times its weights ``w``, summed in f32 in the stable
+    order of ``order`` (N, K): the order in which the reference's scatter-add
+    adds them, with no atomics. Returns (N, D)."""
+    n, k = slot.shape
+    m, d = rows.shape
+    by = torch.argsort(order, dim=-1, stable=True)
+    slot = torch.gather(slot, 1, by).reshape(-1)
+    w = torch.gather(w, 1, by)
+    got = torch.gather(rows, 0, torch.clamp(slot, max=m - 1)[:, None].expand(n * k, d))
+    contrib = torch.where((slot < m)[:, None], got, 0).reshape(n, k, d).float() * w[..., None]
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y
+
+
 def moe_apply(p, x, cfg: ModelConfig):
     """x: (B, S, D) -> (out, aux_loss).
 
@@ -67,10 +122,7 @@ def moe_apply(p, x, cfg: ModelConfig):
     e = cfg.n_experts
     xf = x.reshape(n, d)
 
-    logits = L.matmul(xf.float(), p["router"]).float()
-    probs = torch.softmax(logits, dim=-1)  # (N, E)
-    w, idx = ops.top_k(probs, k)  # (N, K)
-    w = w / w.sum(-1, keepdim=True)
+    probs, w, idx = _route(xf, p["router"], k)  # (N, E), (N, K), (N, K)
 
     # Switch-style load-balance auxiliary loss (a fixed-order sum, no atomics).
     me = probs.mean(0)
@@ -83,44 +135,118 @@ def moe_apply(p, x, cfg: ModelConfig):
     # to its K slots as one broadcast (whose gradient is a sum over K, where
     # a gather of the row K times would scatter-add it back).
     cap = capacity(cfg, n)
-    flat_e = idx.reshape(-1).long()  # (N*K,)
-    order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    seg_start = torch.searchsorted(sorted_e, torch.arange(e, device=x.device))
-    pos = torch.empty_like(order).scatter_(
-        0, order, torch.arange(n * k, device=x.device) - seg_start[sorted_e])
-    slot = torch.where(pos < cap, flat_e * cap + pos, e * cap).reshape(n, k)  # e*cap: dropped
+    slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
 
     buf = ops.at_set(x.new_zeros((e * cap, d)), slot, xf[:, None])
-    hb = buf.reshape(e, cap, d)
-    h = L.matmul(hb, p["w_in"])
-    g = L.matmul(hb, p["w_gate"])
-    h = (h * F.silu(g)).to(x.dtype)
-    yb = L.matmul(h, p["w_out"]).reshape(e * cap, d)
+    yb = _experts(buf.reshape(e, cap, d), p["w_in"], p["w_gate"], p["w_out"], x.dtype)
 
-    # ---- combine ----
-    # The reference scatter-adds each token's K contributions in sorted
-    # (expert-id) order. Here each token's K slots are put in that order, their
-    # rows gathered, and summed in it: the same additions, with no atomics.
-    by_expert = torch.argsort(idx, dim=-1, stable=True)
-    slot = torch.gather(slot, 1, by_expert).reshape(-1)
-    w_e = torch.gather(w, 1, by_expert)
-    rows = torch.gather(yb, 0, torch.clamp(slot, max=e * cap - 1)[:, None].expand(n * k, d))
-    per_assign = torch.where((slot < e * cap)[:, None], rows, 0).reshape(n, k, d)
-    contrib = per_assign.float() * w_e[..., None]
-    y = contrib[:, 0]
-    for j in range(1, k):
-        y = y + contrib[:, j]
+    # ---- combine: the reference scatter-adds in sorted (expert-id) order ----
+    y = _combine(yb.reshape(e * cap, d), slot, w, idx)
 
     if cfg.n_shared_experts:
         y = y + L.mlp(p["shared"], xf, cfg.act).float()
     return y.reshape(b, s, d).to(x.dtype), aux
 
 
+def moe_apply_ep(p, x, cfg: ModelConfig, mesh):
+    """Expert-parallel dispatch over ``mesh``'s "model" axis (the
+    reference's ``shard_map`` with two ``all_to_all``s out and one back),
+    for a :class:`~repro_torch.launch.mesh.ProcessMesh`. x: (B, S, D) ->
+    (out (B, S, D), aux_loss).
+
+    Shapes are global over "model", as in and out of the reference's
+    ``shard_map``: every model rank passes the same ``x`` and gets the whole
+    output. Over the data axes each rank passes its own rows (the batch as
+    ``parallel/sharding.py`` places it; the reference's ``P(dp, "model")``),
+    and the parameters' gradients are left to the step's mean over them.
+
+    Each model rank routes its chunk of the sequence and holds E / tp
+    experts. Its assignments go to their expert's rank in a send buffer of
+    ``cap_send`` rows per rank, and there into ``cap_e`` rows per expert;
+    both keep their first assignments in order and drop the rest, so this
+    equals ``moe_apply`` only where neither drops. ``aux`` is averaged over
+    every mesh axis, replicated. The local products are plain batched
+    matmuls, as the reference's are ``einsum``s: it runs no kernel here.
+    """
+    tp = mesh.shape["model"]
+    gm = mesh.group("model")
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = e // tp
+
+    x_loc = C.shard(x, gm, 1)
+    b, s, d = x_loc.shape
+    n = b * s
+    xf = x_loc.reshape(n, d)
+    router = C.replicated(p["router"], gm)
+    w_in, w_gate, w_out = (C.shard(p[name], gm, 0) for name in ("w_in", "w_gate", "w_out"))
+
+    probs, w, idx = _route(xf, router, k)  # idx: (n, k) global expert ids
+
+    # averaged over every mesh axis: the data axes first, each rank's loss its own
+    # there (partial), then "model", over which the loss is replicated
+    def mesh_mean(v):
+        return C.pmean(C.pmean(v, mesh.data_group, partial=True), gm)
+
+    me = mesh_mean(probs.mean(0))
+    ce = mesh_mean(ops.segment_sum(w.reshape(-1), idx.reshape(-1), e) / n)
+    aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
+
+    # pack the send buffer: cap_send rows per destination rank. Assignments
+    # stay in (token, k) layout, so each token's row reaches its K slots as one
+    # broadcast (its gradient a sum over K, not a scatter-add of K gathers).
+    cap_send = -(-int(n * k * cfg.capacity_factor) // tp)
+    cap_send = -(-cap_send // 8) * 8
+    idx = idx.long()
+    dest = idx // e_loc
+    slot = _slots(dest, tp, cap_send)  # (n, k)
+    send = ops.at_set(x_loc.new_zeros((tp * cap_send, d)), slot, xf[:, None])
+    send_eid = ops.at_set(torch.full((tp * cap_send,), -1, dtype=torch.int64, device=x.device),
+                          slot, idx % e_loc)
+
+    rx = C.all_to_all(send.reshape(tp, cap_send, d), gm).reshape(tp * cap_send, d)
+    re = C.all_to_all(send_eid.reshape(tp, cap_send), gm).reshape(tp * cap_send)
+
+    # local grouped products over this rank's e_loc experts, cap_e rows each
+    cap_e = -(-tp * cap_send // e_loc)
+    cap_e = -(-cap_e // 8) * 8
+    slot2 = _slots(torch.where(re >= 0, re, e_loc), e_loc, cap_e)
+    buf = ops.at_set(x_loc.new_zeros((e_loc * cap_e, d)), slot2, rx)
+    yb = _experts(buf.reshape(e_loc, cap_e, d), w_in, w_gate, w_out, x.dtype)
+    yb = yb.reshape(e_loc * cap_e, d)
+
+    # back to the received rows' order (zeros where dropped), home by all_to_all
+    rows = torch.gather(yb, 0, torch.clamp(slot2, max=e_loc * cap_e - 1)[:, None]
+                        .expand(tp * cap_send, d))
+    out_rx = torch.where((slot2 < e_loc * cap_e)[:, None], rows.float(), 0.0)
+    back = C.all_to_all(out_rx.reshape(tp, cap_send, d), gm).reshape(tp * cap_send, d)
+
+    # combine: the reference scatter-adds in its send order (by destination rank)
+    y = _combine(back, slot, w, dest)
+
+    if cfg.n_shared_experts:
+        shared = tree_map(lambda v: C.replicated(v, gm), p["shared"])
+        y = y + L.mlp(shared, xf, cfg.act).float()
+    return C.unshard(y.reshape(b, s, d).to(x.dtype), gm, 1), aux
+
+
+def _ambient_mesh():
+    """The mesh ``launch.mesh.set_mesh`` made ambient, if it has a model axis
+    above 1; None keeps ``moe_apply``."""
+    m = get_mesh()
+    if m is not None and "model" in m.axis_names and m.shape["model"] > 1:
+        return m
+    return None
+
+
 def _moe_ffn(cfg: ModelConfig, p, xn):
-    """The reference picks its expert-parallel ``shard_map`` dispatch here
-    under a mesh with a model axis; one card has none, so this is
-    ``moe_apply``."""
+    """Dispatch selector, the reference's: the expert-parallel dispatch under
+    ``cfg.moe_hints`` and an ambient mesh whose model axis divides the
+    experts and the sequence, else ``moe_apply``."""
+    if cfg.moe_hints:
+        mesh = _ambient_mesh()
+        if (mesh is not None and cfg.n_experts % mesh.shape["model"] == 0
+                and xn.shape[1] % mesh.shape["model"] == 0):
+            return moe_apply_ep(p, xn, cfg, mesh)
     return moe_apply(p, xn, cfg)
 
 
@@ -256,9 +382,12 @@ def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):
 
 def _serve_ffn(cfg: ModelConfig, lp, h):
     """A layer's feed-forward block in a serving pass: the dense-first
-    layers' MLP, or the experts (whose aux loss serving drops)."""
+    layers' MLP, or the experts (whose aux loss serving drops) through
+    ``_moe_ffn``, as the reference's prefill dispatches them. Its decode step
+    calls ``moe_apply``, which ``_moe_ffn`` is there too: one token does not
+    split over a model axis above 1."""
     hn = T.norm(cfg, lp["ln2"], h)
-    return h + (L.mlp(lp["mlp"], hn, cfg.act) if "mlp" in lp else moe_apply(lp["moe"], hn, cfg)[0])
+    return h + (L.mlp(lp["mlp"], hn, cfg.act) if "mlp" in lp else _moe_ffn(cfg, lp["moe"], hn)[0])
 
 
 def prefill(params, batch, cfg: ModelConfig):

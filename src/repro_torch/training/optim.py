@@ -5,8 +5,11 @@ Moments are float32 whatever the parameters' dtype; each parameter is
 updated in float32 and rounded back to its own dtype. ``update`` works in
 place: it overwrites the parameters and moments it is given (as the
 reference's jitted step overwrites its donated buffers), so a step needs no
-second copy of the moments, 8.8 GB at tinyllama-1.1b's size. The reference's
-ZeRO moment sharding is mesh code and waits for the multi-card slice.
+second copy of the moments, 8.8 GB at tinyllama-1.1b's size. The
+reference's docstring names ZeRO-style moment sharding, but its code has
+none (``opt_state_specs`` mirrors the parameters' specs, and its launcher
+never places the moments): here, as there, every data rank holds the
+moments whole.
 """
 
 from __future__ import annotations

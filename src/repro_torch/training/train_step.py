@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import base, registry
+from repro_torch.parallel import collectives as C
 from repro_torch.training import optim
 
 
@@ -35,13 +36,19 @@ def value_and_grad(loss_fn, params, batch, idle=()):
     return loss.detach(), base.tree_unflatten(params, grads)
 
 
-def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int = 1):
+def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int = 1,
+                    mesh=None):
     """Returns train_step(params, opt_state, batch) -> (params, opt, metrics),
     which updates ``params`` and ``opt_state`` in place (``optim.update``).
 
     With microbatches > 1, the batch is split along axis 0 and the splits'
     gradients are summed in float32 and divided by their count (the
     reference's ``lax.scan``).
+
+    With ``mesh`` (a ``launch.mesh.ProcessMesh``), ``batch`` is this rank's
+    share along the data axes, and after the accumulation the step makes one
+    all-reduce over them: the gradients' mean and the loss's, the
+    reference's deferred psum. Every rank then runs the same update.
     """
     api = registry.get_api(cfg)
     loss_fn = api.loss_fn
@@ -65,6 +72,9 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
             grads = base.tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
 
+        if mesh is not None:
+            loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
+            grads = base.tree_unflatten(grads, leaves)
         params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state)
         metrics["loss"] = loss
         return params, opt_state, metrics

@@ -286,3 +286,107 @@ def test_entry_points_need_a_device_choice(monkeypatch, tmp_path):
                  lambda: faults.params_for(geometry.tiny_config(prog_fail_rate=0.01))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+# ------------------------- data-parallel training -------------------------
+TINY_RUN = dict(arch="tinyllama-1.1b", smoke=True, batch=4, seq=32, lr=2e-3, log_every=1)
+GRANITE_RUN = dict(arch="granite-moe-3b-a800m", batch=2, seq=32, steps=3, log_every=1,
+                   cfg=smoke_variant(ARCHS["granite-moe-3b-a800m"]).with_(
+                       moe_hints=True, capacity_factor=4.0))  # E / K: nothing drops
+
+
+class TestRunOnAMesh:
+    """``launch.train.run(mesh=)`` on two gloo ranks spawned on the CPU
+    (``tests/torch_parallel_workers.py``) against one process.
+
+    Tolerances, f32 parameters: a mean of two shards' gradients equals the
+    whole batch's only up to float32 rounding, and the model ranks' expert
+    products and cross-rank sums run in another order than one process's.
+    Losses rtol 1e-5 (measured <= 1.6e-7). Parameters rtol 1e-5 plus atol
+    1e-5 (measured <= 4.3e-7 absolute): AdamW divides each entry by its own
+    root mean square plus eps, so an entry whose gradient nearly cancels
+    takes a step the two runs disagree on by a larger share
+    (``tests/test_torch_train.py``), up to 1.4e-2 of a parameter near zero.
+    """
+
+    @pytest.fixture(scope="class")
+    def ranks(self, tmp_path_factory):
+        import torch_parallel_workers as W
+
+        tmp = tmp_path_factory.mktemp("run_on_a_mesh")
+        ck = str(tmp / "ck")
+        jobs = [((2, 1), dict(TINY_RUN, steps=10), True),
+                ((1, 2), GRANITE_RUN, True),
+                ((2, 1), dict(TINY_RUN, steps=6), False),
+                ((2, 1), dict(TINY_RUN, steps=3, ckpt_dir=ck), False),
+                ((2, 1), dict(TINY_RUN, steps=6, ckpt_dir=ck), False)]
+        return W.spawn("train_runs", 2, tmp / "spawn", jobs)
+
+    @staticmethod
+    def one_process(kw):
+        """``run`` in this process, f32 parameters: (hist, {path: numpy})."""
+        import torch_parallel_workers as W
+        from repro_torch.launch.train import run
+
+        orig = W.f32_materialize()
+        try:
+            params, hist = run(device="cpu", **kw)
+        finally:
+            base.materialize = orig
+        return hist, {k: v.numpy() for k, v in base.tree_paths(params).items()}
+
+    def _hold(self, ranks, job, kw):
+        hist, params = self.one_process(kw)
+        for r in ranks:
+            got = r[job]
+            assert [s for s, _ in got["hist"]] == [s for s, _ in hist]
+            np.testing.assert_allclose([l for _, l in got["hist"]], [l for _, l in hist],
+                                       rtol=1e-5, atol=0)
+            assert got["params"].keys() == params.keys()
+            for k, v in params.items():
+                np.testing.assert_allclose(got["params"][k], v, rtol=1e-5, atol=1e-5, err_msg=k)
+        np.testing.assert_array_equal(ranks[0][job]["hist"], ranks[1][job]["hist"])
+
+    def test_two_data_ranks_match_one_process(self, ranks, one_thread):
+        self._hold(ranks, 0, dict(TINY_RUN, steps=10))
+        assert ranks[0][0]["ep_calls"] == 0
+
+    def test_two_model_ranks_run_expert_parallel_and_match_one_process(self, ranks, one_thread):
+        self._hold(ranks, 1, GRANITE_RUN)
+        n_moe = GRANITE_RUN["cfg"].n_layers - GRANITE_RUN["cfg"].first_k_dense
+        assert all(r[1]["ep_calls"] == n_moe * GRANITE_RUN["steps"] for r in ranks)
+
+    def test_resume_from_a_final_save_is_bit_equal(self, ranks):
+        straight, first, second = (ranks[0][j] for j in (2, 3, 4))
+        assert second["hist"][0][0] == 3
+        assert first["hist"] + second["hist"] == straight["hist"]
+        for k, v in straight["params"].items():
+            np.testing.assert_array_equal(second["params"][k], v, err_msg=k)
+        for k, v in ranks[1][4]["params"].items():  # both ranks restored the same step
+            np.testing.assert_array_equal(v, second["params"][k], err_msg=k)
+
+
+def test_no_mesh_and_no_group_is_the_one_device_loop(one_thread):
+    """``run(mesh=None)`` outside a process group is the loop it was before
+    meshes: the same parameters, batches and steps, bit for bit."""
+    from repro_torch.launch.train import run
+    from repro_torch.training import train_step as ts
+
+    assert not torch.distributed.is_initialized()
+    params, hist = run(device="cpu", **dict(TINY_RUN, steps=4))
+    cfg = smoke_variant(ARCHS["tinyllama-1.1b"])
+    want = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(0),
+                            device="cpu")
+    ocfg = optim.AdamWConfig(lr=TINY_RUN["lr"], warmup=20, total_steps=4)
+    state = optim.init(want)
+    step_fn = ts.make_train_step(cfg, ocfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TINY_RUN["seq"],
+                                  global_batch=TINY_RUN["batch"]))
+    losses = []
+    for step in range(4):
+        b = {k: torch.from_numpy(v) for k, v in data.batch_at(step).items()}
+        want, state, metrics = step_fn(want, state, b)
+        losses.append(float(metrics["loss"]))
+    assert [l for _, l in hist] == losses
+    for a, b in zip(base.tree_leaves(params), base.tree_leaves(want)):
+        assert torch.equal(a, b)

@@ -5,8 +5,9 @@ one device: the single-device half of ``tests/test_sharded_sweep.py``,
 (``device="cpu"``). Where the reference holds its sharded executor to its
 vmapped one, these hold ``devices=1`` and a clamped count to
 ``devices=None``: same runs, same order, every result exactly equal
-(``assert_results_identical``). A count that resolves above one device
-raises ``NotImplementedError``, and a sweep without ``device=`` needs CUDA.
+(``assert_results_identical``), and hold two and three devices (each
+group's runs split into blocks, a thread per device; the CPU named more than
+once) to one device the same way. A sweep without ``device=`` needs CUDA.
 """
 
 import json
@@ -60,12 +61,32 @@ class TestOneDevice:
         with pytest.raises(ValueError, match="devices"):
             sweep.run_sweep(_spec(), devices=0, device=CPU)
 
-    def test_more_than_one_device_is_refused(self):
-        """Two devices resolved: the sweep refuses rather than running on
-        fewer devices than it resolved, and names where a multi-card sweep
-        waits."""
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sweep.run_sweep(_spec(), devices=("cpu", "cpu"), device=CPU)
+    def test_two_devices_match_one(self, plain):
+        """Two devices: each policy group's two runs split one per device, in
+        a thread each; the results are one device's, in run order."""
+        _assert_identical(plain, sweep.run_sweep(_spec(), devices=("cpu", "cpu"), device=CPU))
+
+    def test_uneven_grid_on_two_devices(self):
+        """Three runs a group on two devices: blocks of two and one (the
+        reference pads the second with a copy of the last run)."""
+        spec = _spec(initial_pe=(166, 500, 833))
+        _assert_identical(sweep.run_sweep(spec, device=CPU),
+                          sweep.run_sweep(spec, devices=("cpu", "cpu"), device=CPU))
+
+    def test_more_devices_than_runs_in_a_group(self, plain, monkeypatch):
+        """Three devices for two runs a group: one run each on two of them,
+        the third idle (the reference runs a padding copy there)."""
+        seen = []
+        real = sweep.run_one
+
+        def recording(cfg, chunks, has_writes, knobs, device):
+            seen.append(int(knobs.initial_pe))
+            return real(cfg, chunks, has_writes, knobs, device)
+
+        monkeypatch.setattr(sweep, "run_one", recording)
+        res = sweep.run_sweep(_spec(), devices=("cpu",) * 3, device=CPU)
+        _assert_identical(plain, res)
+        assert sorted(seen) == [166, 166, 833, 833]  # each run once, no padding run
 
     def test_resolve_devices_clamps_and_warns(self):
         # tests/test_faults.py's twin also asserts hostdev's XLA_FLAGS; the port

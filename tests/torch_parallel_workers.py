@@ -1,0 +1,212 @@
+"""Process groups for the port's parallel tests: ``spawn`` starts ``world``
+gloo ranks on the CPU (``torch.multiprocessing``, a ``file://`` rendezvous
+under the test's own directory, so parallel test workers never share a
+port), runs a job of this module on each, and returns each rank's result.
+
+Jobs import torch and the port only (no JAX), and run on one intra-op
+thread each: a test run shares the machine's cores among its workers.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from repro_torch.configs import ARCHS, smoke_variant
+from repro_torch.launch import mesh as M
+from repro_torch.models import base, moe
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import compression as comp
+
+SPAWN_TIMEOUT_S = 300
+# the EP cases: mesh shapes (data, model) and MoE variants (``moe_cfg``)
+MESH_SHAPES = ((1, 4), (2, 2), (1, 2))
+VARIANTS = ("granite", "granite_cf05", "deepseek")
+# _moe_ffn's choice: (moe_hints, n_experts, model axis size, sequence length)
+SELECT_CASES = [(h, e, tp, s) for h in (False, True) for e in (8, 6) for tp in (1, 2, 4)
+                for s in (16, 6)]
+
+
+def _main(rank, world, job, tmp, args):
+    torch.set_num_threads(1)
+    M.init_distributed("cpu", init_method=f"file://{tmp / 'rendezvous'}", rank=rank,
+                       world_size=world)
+    try:
+        out = globals()[job](*args)
+        torch.save(out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(job: str, world: int, tmp: Path, *args) -> list:
+    """``job(*args)`` on each of ``world`` gloo ranks; their results in rank
+    order."""
+    tmp = Path(tmp)
+    tmp.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(_main, args=(world, job, tmp, args), nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + SPAWN_TIMEOUT_S
+    # join returns as each rank ends (False while any runs) and raises if one failed
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError(f"{job} on {world} ranks did not end within {SPAWN_TIMEOUT_S} s")
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# --------------------------------------------------------------------------
+# jobs
+# --------------------------------------------------------------------------
+def moe_cfg(variant: str):
+    """The MoE configs of the EP cases, in f32: smoke granite with
+    ``moe_hints``, the same at capacity factor 0.5 (both stages drop), and
+    smoke deepseek-v3 (one shared expert)."""
+    arch = "deepseek-v3-671b" if variant == "deepseek" else "granite-moe-3b-a800m"
+    cfg = smoke_variant(ARCHS[arch]).with_(moe_hints=True)
+    return cfg.with_(capacity_factor=0.5) if variant == "granite_cf05" else cfg
+
+
+def ep_case(mesh, cfg, inputs):
+    """``moe_apply_ep`` on this rank: its rows of x over the data axes, whole
+    over "model". The rank's loss is ``dp * <y_d, dy_d> + daux * aux``, so
+    that the mean of the ranks' losses is the global ``<y, dy> + daux * aux``;
+    the parameters' gradients are then averaged over the data axes, as a
+    data-parallel step averages them, and x's rows' gradient is the rank's
+    own over dp (the mean over data ranks, the others adding nothing)."""
+    dp = mesh.shape["data"]
+    d = mesh.axis_index("data")
+    rows = slice(d * inputs["x"].shape[0] // dp, (d + 1) * inputs["x"].shape[0] // dp)
+    p = {k[2:]: torch.from_numpy(v).requires_grad_() for k, v in inputs.items()
+         if k.startswith("p.") and "." not in k[2:]}
+    shared = {k[9:]: torch.from_numpy(v).requires_grad_() for k, v in inputs.items()
+              if k.startswith("p.shared.")}
+    if shared:
+        p["shared"] = shared
+    x = torch.from_numpy(inputs["x"][rows]).requires_grad_()
+    y, aux = moe.moe_apply_ep(p, x, cfg, mesh)
+    loss = dp * (y * torch.from_numpy(inputs["dy"][rows])).sum() + float(inputs["daux"]) * aux
+    loss.backward()
+    leaves = base.tree_leaves(p)
+    grads = C.mean_over([t.grad for t in leaves], mesh.data_group)
+    return dict(y=y.detach().numpy(), aux=aux.detach().numpy(), gx=(x.grad / dp).numpy(),
+                grads=dict(zip(base.tree_paths(p), (g.numpy() for g in grads))))
+
+
+def ep_cases(shapes, variants, inputs):
+    """Every (mesh shape, variant) EP case on this rank, keyed by both."""
+    out = {}
+    for shape in shapes:
+        mesh = M.make_mesh(shape, ("data", "model"), "cpu")
+        for v in variants:
+            out[(shape, v)] = ep_case(mesh, moe_cfg(v), inputs[v])
+    return out
+
+
+def compressed_case(inputs):
+    """``compressed_allreduce`` over a 1-D "data" axis of every rank: rank
+    i's own x and err, without and with the error feedback."""
+    mesh = M.make_mesh((dist.get_world_size(), 1), ("data", "model"), "cpu")
+    i = dist.get_rank()
+    x, err = torch.from_numpy(inputs["x"][i]), torch.from_numpy(inputs["err"][i])
+    out = {}
+    with M.set_mesh(mesh):
+        for name, e in (("no_err", None), ("err", err)):
+            mean, new_err = comp.compressed_allreduce(x, e, "data")
+            q, scale, _ = comp.compress(x, e)
+            out[name] = dict(mean=mean.numpy(), new_err=new_err.numpy(), q=q.numpy(),
+                             scale=scale.numpy())
+    return out
+
+
+def mesh_layout():
+    """This rank's coordinates on a ("pod", "data", "model") mesh of every
+    rank (2 x 1 x 2 on four), the ranks of its data group (pod and data
+    together) and of its model group, its data shard as ``launch.train``
+    takes it, and whether a mesh of the wrong size is refused."""
+    from repro_torch.launch import train
+
+    world = dist.get_world_size()
+    mesh = M.make_mesh((2, world // 4, 2), ("pod", "data", "model"), "cpu")
+    me = torch.tensor([dist.get_rank()])
+
+    def members(group):
+        parts = [torch.zeros_like(me) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, me, group=group)
+        return [int(t) for t in parts]
+
+    try:
+        M.make_mesh((world + 1,), ("data",), "cpu")
+        refused = False
+    except ValueError:
+        refused = True
+    return dict(coords={ax: mesh.axis_index(ax) for ax in mesh.axis_names},
+                data_group=members(mesh.data_group), model_group=members(mesh.group("model")),
+                data_shard=train._data_shard(mesh), refused=refused)
+
+
+def jobs(*calls):
+    """Several jobs of this module in turn on one world: (name, args) each."""
+    return [globals()[name](*args) for name, args in calls]
+
+
+def f32_materialize():
+    """``base.materialize`` with every parameter drawn in float32 (the
+    tests' f32 runs of ``launch.train.run``); returns the original."""
+    orig = base.materialize
+    base.materialize = functools.partial(orig, dtype=torch.float32)
+    return orig
+
+
+def train_runs(jobs):
+    """``launch.train.run`` on this rank, once per job: (mesh shape, run's
+    keyword arguments, f32 parameters). Returns each run's hist, final
+    parameters (numpy, f32) and how many times it called ``moe_apply_ep``."""
+    from repro_torch.launch import train
+
+    ep = moe.moe_apply_ep
+    calls = [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return ep(*a, **kw)
+
+    moe.moe_apply_ep = counted
+    out = []
+    try:
+        for shape, kw, f32 in jobs:
+            mesh = M.make_mesh(shape, ("data", "model"), "cpu")
+            orig = f32_materialize() if f32 else None
+            calls[0] = 0
+            try:
+                params, hist = train.run(mesh=mesh, device="cpu", **kw)
+            finally:
+                if orig is not None:
+                    base.materialize = orig
+            out.append(dict(hist=hist, ep_calls=calls[0],
+                            params={k: v.float().numpy()
+                                    for k, v in base.tree_paths(params).items()}))
+    finally:
+        moe.moe_apply_ep = ep
+    return out
+
+
+def numpy_inputs(cfg, seed: int, b: int, s: int) -> dict:
+    """f32 inputs of one EP case, drawn by numpy: the MoE parameters
+    (``p.<name>``, the shared expert's ``p.shared.<name>``), x, the output's
+    cotangent dy and aux's, daux."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, spec in base.tree_paths(moe.moe_specs(cfg)).items():
+        fan_in = spec.shape[-2]
+        out[f"p.{path}"] = (rng.standard_normal(spec.shape) / np.sqrt(fan_in)).astype(np.float32)
+    out["x"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    out["dy"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    out["daux"] = np.float32(rng.uniform(1, 3))
+    return out
