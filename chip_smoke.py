@@ -176,7 +176,17 @@ Phases, one JSON line each:
               and the bytes on the wire against f32; (e) experiments.sweep's
               run_sweep on devices=("cuda:0", "cuda:0") (a thread each) for the
               canonical grid's RARO group at 16,384 requests, identical to one
-              device
+              device; (f) tensor parallelism: two processes on the one card in a
+              gloo group (NCCL refuses two ranks on one GPU; gloo carries CUDA
+              tensors through the host) on the (1, 2) mesh, launch.train.run
+              placing tinyllama-1.1b's parameters by the sharding rules: (f1) 2
+              layers in f32, 2 steps of 2 x 256, losses and the gathered final
+              parameters against one process within the CPU tests' tolerances;
+              (f2) the full model in bf16, 3 steps of 2 x 2048, losses within
+              2e-3 of one process's, 44 flash launches a step on each rank at its
+              16 heads over 2 KV heads, each rank's parameter, gradient and AdamW
+              bytes and peak memory beside one process's, ms a step and the host
+              ms inside gloo's all-reduces (one card: not tensor-parallel speed)
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -231,7 +241,7 @@ from repro_torch.models import (  # noqa: E402
     attention as attn, base, encdec, hybrid, moe, registry, transformer, xlstm)
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.parallel import compression  # noqa: E402
+from repro_torch.parallel import compression, sharding  # noqa: E402
 from repro_torch.training import optim, train_step  # noqa: E402
 from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
 from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
@@ -299,6 +309,14 @@ WHISPER_FLASH = {"whisper_enc": FLASH_WHISPER_ENC, "whisper_dec": FLASH_WHISPER_
 # the autograd entry at MLA's shape (the flash kernel forward, the plain backward)
 FLASH_MLA_TRAIN = (1, 1024, 1024, 128, 128, 192, True)
 V_DIM = dict(HEAD_DIMS)  # the v head dim the kernel pairs with each q and k head dim
+# tinyllama-1.1b's training attention on one rank of a model axis of 2, 4 and 8
+# (its 32 heads over 4 KV heads split over the ranks; at 4 and 8 the KV heads do
+# not divide the axis, and each rank keeps the one its queries read), batch 2 x
+# 2048; and a rank whose two query heads straddle two KV groups (12 heads over 4
+# on 6 ranks), its KV heads expanded to one for each query head
+FLASH_TP = {"tp2": (2, PROMPT, PROMPT, 16, 2, 64, True), "tp4": (2, PROMPT, PROMPT, 8, 1, 64, True),
+            "tp8": (2, PROMPT, PROMPT, 4, 1, 64, True),
+            "tp_expanded_kv": (2, PROMPT, PROMPT, 2, 2, 64, True)}
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
 # not multiples of the kernel's 64-row tiles, with GQA and no causal mask
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
@@ -589,7 +607,7 @@ def check_flash(dev, full_only):
     cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
              ("granite", FLASH_GRANITE, torch.bfloat16), ("mla", FLASH_MLA, torch.float32),
              ("mla", FLASH_MLA, torch.bfloat16)]
-    cases += [(label, shape, dt) for label, shape in WHISPER_FLASH.items()
+    cases += [(label, shape, dt) for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP.items())
               for dt in (torch.float32, torch.bfloat16)]
     if not full_only:
         cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
@@ -2796,9 +2814,223 @@ def parallel_sweep():
                 two_entries_s=t2 - t1, identical=True)
 
 
+# (f): tensor parallelism over two processes on the one card, a gloo group
+# (NCCL refuses two ranks on one GPU; gloo's all-reduce and all-gather take
+# CUDA tensors through the host), on the (1, 2) ("data", "model") mesh
+TP_WORLD = 2
+TP_CMP = dict(n_layers=2, steps=2, batch=2, seq=256, lr=1e-3)  # (f1): f32, 2 layers
+TP_STEPS, TP_BATCH = 3, 2  # (f2): full depth in bf16, 3 steps of 2 x 2048 tokens
+TP_TIMEOUT_S = 300
+# (f1)'s tolerances, the CPU tests' for f32 steps taken two ways: losses rtol
+# 1e-5; parameters rtol 1e-5 plus atol 1e-4, a tenth of one AdamW step at lr
+# 1e-3, as tests/test_torch_train.py holds parameters after steps at this lr
+# (AdamW divides each entry by its own root mean square plus eps, so an entry
+# whose gradient nearly cancels steps by an amount that the sums' order moves;
+# on an H100 one entry of 524,288 in layer 0's wk came out 1.3e-5 apart).
+# (f2): the losses rtol 2e-3, as the CPU tests hold bf16 losses
+TP_TOL = dict(loss=1e-5, params_rtol=1e-5, params_atol=1e-4, bf16_loss=2e-3)
+
+
+@contextlib.contextmanager
+def f32_params():
+    """``base.materialize`` draws every parameter in float32 while active."""
+    orig = base.materialize
+    base.materialize = lambda *a, **kw: orig(*a, **{**kw, "dtype": torch.float32})
+    try:
+        yield
+    finally:
+        base.materialize = orig
+
+
+@contextlib.contextmanager
+def timed_all_reduces(totals):
+    """While active, each ``torch.distributed.all_reduce`` runs between two
+    synchronizes, and its host ms and count are added to ``totals`` (``ms``,
+    ``calls``). With gloo on CUDA tensors the call copies them to the host,
+    reduces there and copies back."""
+    real = dist.all_reduce
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        totals["ms"] = totals.get("ms", 0.0) + (time.perf_counter() - t0) * 1e3
+        totals["calls"] = totals.get("calls", 0) + 1
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def tp_runs(dev, cfg, mesh=None, out=None):
+    """(f1) and (f2) on ``mesh`` (None: one process): (f1) ``launch.train.run``
+    of 2 layers at tinyllama's widths in f32, TP_CMP; (f2) the full model in
+    bf16, TP_STEPS steps of TP_BATCH x 2048, each step timed between two
+    synchronizes with its flash launches, and (on a mesh) the host ms inside
+    the group's all-reduces and all-gathers; the parameters' and AdamW
+    state's bytes as the first step receives them, and the peak of allocated
+    memory. (f1)'s final parameters, gathered whole, are saved to ``out``
+    (rank 0) or returned."""
+    c = TP_CMP
+    cmp_cfg = cfg.with_(n_layers=c["n_layers"], dtype=torch.float32)
+    with f32_params():
+        params, hist1 = train.run(cfg.arch, cfg=cmp_cfg, steps=c["steps"], batch=c["batch"],
+                                  seq=c["seq"], lr=c["lr"], log_every=1, mesh=mesh, device=dev)
+    params = {k: v.cpu() for k, v in base.tree_paths(
+        sharding.gather_params(params, cmp_cfg, mesh)).items()}
+    if out is not None and dist.get_rank() == 0:
+        torch.save(params, out)
+    records, bytes_, coll = [], {}, {}
+    make = train_step.make_train_step
+
+    def sizing(*a, **kw):
+        step = make(*a, **kw)
+
+        def first(params, opt_state, batch):
+            if not bytes_:  # the gradients take the parameters' shapes and dtypes
+                bytes_.update(params=dryrun.tree_bytes(params), grads=dryrun.tree_bytes(params),
+                              adamw_state=dryrun.tree_bytes(opt_state))
+            return step(params, opt_state, batch)
+        return first
+
+    train_step.make_train_step = sizing
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with recorded_steps(records), (timed_all_reduces(coll) if mesh is not None
+                                       else contextlib.nullcontext()):
+            reset_counts()
+            _, hist2 = train.run(cfg.arch, smoke=False, steps=TP_STEPS, batch=TP_BATCH,
+                                 seq=TRAIN_SEQ, log_every=1, mesh=mesh, device=dev)
+            torch.cuda.synchronize()
+            n = counts()
+    finally:
+        train_step.make_train_step = make
+    step_ms = [r["ms"] for r in records]
+    return dict(f1_hist=hist1, f1_params=None if out is not None else params,
+                f2=dict(losses=[l for _, l in hist2], step_ms=step_ms,
+                        flash_launches_per_step=[r["flash_launches"] for r in records],
+                        launches=n, bytes=bytes_, max_memory_allocated=torch.cuda.max_memory_allocated(),
+                        all_reduces=coll))
+
+
+def _tp_rank(rank, world, rendezvous, out_dir):
+    """One rank of (f), in a process of its own on the card: a gloo group
+    from a file:// rendezvous, the (1, world) mesh over it, then ``tp_runs``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", init_method=f"file://{rendezvous}", rank=rank,
+                           world_size=world, backend="gloo")
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), dev)
+        res = tp_runs(dev, tinyllama_1_1b.CONFIG, mesh, out_dir / "f1_params.pt")
+        res["backend"] = dist.get_backend()
+        torch.save(res, out_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_tp(dev, cfg, smi):
+    """(f) tinyllama-1.1b's training step tensor-parallel over two processes
+    on the card against one process: (f1) in f32, the losses and the final
+    parameters gathered whole within TP_TOL; (f2) at full depth in bf16, the
+    losses within 2e-3, 2 x n_layers flash launches a step on each rank at
+    its heads (16 over 2 KV heads), each rank's bytes and peak beside the one
+    process's. Returns the flash launches of (f2) over both ranks."""
+    import torch.multiprocessing as mp
+
+    one = tp_runs(dev, cfg)
+    torch.cuda.empty_cache()
+    tp_dir = PARALLEL_DIR / "tp"
+    shutil.rmtree(tp_dir, ignore_errors=True)
+    tp_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_tp_rank, args=(TP_WORLD, tp_dir / "rendezvous", tp_dir),
+                             nprocs=TP_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"chip_smoke: (f) did not end within {TP_TIMEOUT_S} s")
+    wall_s = time.perf_counter() - t0
+    ranks = [torch.load(tp_dir / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    got = torch.load(tp_dir / "f1_params.pt")
+    shutil.rmtree(tp_dir, ignore_errors=True)
+
+    # (f1): f32, 2 layers, 2 steps, against one process
+    want, t = one["f1_params"], TP_TOL
+    losses = [[l for _, l in r["f1_hist"]] for r in ranks]
+    loss_err = max(abs(a - b) / abs(b) for ls in losses for a, (_, b) in zip(ls, one["f1_hist"]))
+    check(all(ls == losses[0] for ls in losses) and loss_err <= t["loss"],
+          f"(f1) losses {losses} vs one process {one['f1_hist']}")
+    check(got.keys() == want.keys(), "(f1) the gathered parameters' leaves differ")
+    worst = {}
+    for k, w in want.items():
+        torch.testing.assert_close(got[k], w, rtol=t["params_rtol"], atol=t["params_atol"],
+                                   msg=lambda m: f"(f1) {k}: {m}")
+        worst[k] = float((got[k] - w).abs().max())
+    f1 = dict(n_layers=TP_CMP["n_layers"], steps=TP_CMP["steps"], batch=TP_CMP["batch"],
+              seq=TP_CMP["seq"], dtype="float32", loss_max_rel_err=loss_err,
+              params_max_abs_err=max(worst.values()),
+              worst_leaf=max(worst, key=worst.get), tol=t)
+
+    # (f2): full depth, bf16
+    per_step = 2 * cfg.n_layers  # the forward, and remat's recompute in the backward
+    o2 = one["f2"]
+    for i, r in enumerate(ranks):
+        f2 = r["f2"]
+        check(all(math.isfinite(l) for l in f2["losses"]), f"(f2) rank {i}: {f2['losses']}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(f2["losses"], o2["losses"]))
+        check(rel <= t["bf16_loss"], f"(f2) rank {i} losses {f2['losses']} vs {o2['losses']}")
+        check(f2["flash_launches_per_step"] == [per_step] * TP_STEPS
+              and f2["launches"]["flash_attention_fwd"] == per_step * TP_STEPS,
+              f"(f2) rank {i} flash launches {f2['flash_launches_per_step']}, {f2['launches']}")
+        f2["loss_max_rel_err"] = rel
+    check(ranks[0]["f2"]["losses"] == ranks[1]["f2"]["losses"], "(f2) the ranks' losses differ")
+
+    def after_first(ms):
+        return sum(ms[1:]) / (len(ms) - 1)
+
+    rank_lines = []
+    for i, r in enumerate(ranks):
+        f2 = r["f2"]
+        ms = after_first(f2["step_ms"])
+        rank_lines.append(dict(
+            rank=i, losses=f2["losses"], loss_max_rel_err=f2["loss_max_rel_err"],
+            step_ms=f2["step_ms"], ms_per_step_after_first=ms,
+            flash_launches_per_step=f2["flash_launches_per_step"], launches=f2["launches"],
+            bytes=f2["bytes"], bytes_over_one_process={
+                k: v / o2["bytes"][k] for k, v in f2["bytes"].items()},
+            max_memory_allocated=f2["max_memory_allocated"],
+            peak_over_one_process=f2["max_memory_allocated"] / o2["max_memory_allocated"],
+            all_reduce_calls=f2["all_reduces"]["calls"], all_reduce_ms=f2["all_reduces"]["ms"],
+            all_reduce_share_of_steps=f2["all_reduces"]["ms"] / sum(f2["step_ms"])))
+    line = dict(
+        backend=ranks[0]["backend"], world=TP_WORLD, mesh=dict(data=1, model=TP_WORLD),
+        device="one card, both ranks on cuda:0", spawn_to_end_s=wall_s, f1_f32=f1,
+        f2_bf16=dict(arch=cfg.arch, n_layers=cfg.n_layers, heads_per_rank=cfg.n_heads // TP_WORLD,
+                     kv_heads_per_rank=cfg.n_kv_heads // TP_WORLD, batch=TP_BATCH, seq=TRAIN_SEQ,
+                     steps=TP_STEPS, remat=cfg.remat,
+                     one_process=dict(losses=o2["losses"], step_ms=o2["step_ms"],
+                                      ms_per_step_after_first=after_first(o2["step_ms"]),
+                                      bytes=o2["bytes"],
+                                      max_memory_allocated=o2["max_memory_allocated"]),
+                     ranks=rank_lines,
+                     note="two ranks share one card and gloo copies every all-reduce through "
+                          "the host: these times are not tensor-parallel speed"))
+    return line, sum(r["f2"]["launches"]["flash_attention_fwd"] for r in ranks)
+
+
 def phase_parallel(dev, cfg, smi):
     """The parallel layer at runtime on the card (see the module docstring,
-    phase 16). Returns the flash launches of (b)'s mesh run."""
+    phase 16). Returns the launch counts of (b)'s mesh run and the flash
+    launches of (f)'s full-depth run over both ranks."""
     # (b) first without a group: mesh=None inside one would build the (1, 1) mesh
     t_phase = time.perf_counter()
     p_one, h_one, r_one, _ = parallel_train(dev, cfg)
@@ -2840,11 +3072,14 @@ def phase_parallel(dev, cfg, smi):
         wall["e"] = time.perf_counter() - t0
     finally:
         dist.destroy_process_group()
+    t0 = time.perf_counter()
+    tp_line, tp_launches = parallel_tp(dev, cfg, smi)
+    wall["f"] = time.perf_counter() - t0
     emit("parallel", nvidia_smi=smi, backend=backend, world=1, mesh=dict(data=1, model=1),
          group_start_s=start_s, b_train=train_line, c_moe_apply_ep=ep,
-         d_compressed_allreduce=compressed, e_sweep_two_entries=sweep_line,
+         d_compressed_allreduce=compressed, e_sweep_two_entries=sweep_line, f_tp=tp_line,
          wall_s=dict(wall, phase=time.perf_counter() - t_phase))
-    return n
+    return n, tp_launches
 
 
 def _mean_row(rows):
@@ -2889,18 +3124,20 @@ def main():
         dryrun_launches = phase_dryrun(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
-        parallel_launches = phase_parallel(dev, cfg, smi)
+        parallel_launches, tp_launches = phase_parallel(dev, cfg, smi)
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
         # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
         # and training step (f32, 2 + 2 layers), the dry run's cells (bf16),
-        # and tinyllama's training on the one-rank mesh (bf16)
+        # tinyllama's training on the one-rank mesh (bf16), and on the (1, 2)
+        # mesh, tensor-parallel, both ranks' launches (bf16)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
                    **moe_launches, "mla_prefill": mla_launches,
                    "whisper_prefill": family_launches["whisper-medium"],
                    "whisper_train": family_launches["whisper_train"],
                    "dryrun_cells": dryrun_launches["flash_attention_fwd"],
-                   "parallel_train": parallel_launches["flash_attention_fwd"]}
+                   "parallel_train": parallel_launches["flash_attention_fwd"],
+                   "parallel_tp": tp_launches}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())

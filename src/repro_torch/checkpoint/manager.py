@@ -19,16 +19,30 @@ import json
 from dataclasses import dataclass, field
 from pathlib import Path
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.models import base
+from repro_torch.parallel import sharding
 
 
 class CheckpointManager:
+    """Saves and restores trees of tensors. With ``mesh`` (a
+    ``launch.mesh.ProcessMesh``) and ``cfg``, the trees are ``cfg``'s
+    parameters and AdamW state as ``parallel.sharding.shard_params`` placed
+    them over the mesh, and every rank calls ``save`` and
+    ``restore_latest``: ``save`` gathers the split leaves and rank 0 writes
+    them whole, in the one-device format (either package, on any mesh,
+    restores them); ``restore_latest`` reads them whole and keeps this
+    rank's blocks."""
+
     def __init__(self, root: str | Path, *, keep: int = 3, interval: int = 100,
-                 async_: bool = True):
+                 async_: bool = True, cfg=None, mesh=None):
         self.root = Path(root)
         self.keep = keep
         self.interval = interval
         self.async_ = async_
+        self.cfg, self.mesh = cfg, mesh
         self._pending = None
         self.root.mkdir(parents=True, exist_ok=True)
 
@@ -39,6 +53,10 @@ class CheckpointManager:
         return step > 0 and step % self.interval == 0
 
     def save(self, step: int, tree, extra: dict | None = None):
+        if self.mesh is not None:
+            tree = sharding.gather_params(tree, self.cfg, self.mesh)
+            if dist.get_rank() != 0:
+                return
         if self._pending is not None:
             self._pending()  # join previous async write
         self._pending = ckpt.save(self.dir_for(step), tree, step=step,
@@ -74,8 +92,14 @@ class CheckpointManager:
         step = self.latest()
         if step is None:
             return None
-        tree, manifest = ckpt.restore(self.dir_for(step), like_tree, device=device)
-        return step, tree, manifest
+        if self.mesh is None:
+            tree, manifest = ckpt.restore(self.dir_for(step), like_tree, device=device)
+            return step, tree, manifest
+        # whole on the host, then this rank's blocks to the device
+        whole = sharding.whole_like(like_tree, self.cfg, self.mesh)
+        tree, manifest = ckpt.restore(self.dir_for(step), whole, device="cpu")
+        tree = sharding.shard_params(tree, self.cfg, self.mesh)
+        return step, base.tree_map(lambda t: t.to(device), tree), manifest
 
     def _gc(self):
         steps = self.all_steps()

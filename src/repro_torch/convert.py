@@ -19,6 +19,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.kvcache.paged import TieredKV
 from repro_torch.models import base
+from repro_torch.parallel import sharding
 from repro_torch.training.optim import OptState
 
 
@@ -110,17 +111,23 @@ def unstack_layers(tree, depths):
     return tree
 
 
-def params_to_numpy(params) -> dict:
+def params_to_numpy(params, cfg=None, mesh=None) -> dict:
     """The inverse of ``params_from_numpy``: the port's parameter tree as the
     reference's, every leaf of a layer group stacked on a leading axis, with
-    numpy leaves (bfloat16 as float32, see ``tensor_to_numpy``)."""
+    numpy leaves (bfloat16 as float32, see ``tensor_to_numpy``). With
+    ``mesh`` and ``cfg``, ``params`` are this rank's blocks of a run placed
+    over the mesh: they are gathered whole first (``sharding.gather_params``,
+    a collective every rank of the mesh calls)."""
+    if mesh is not None:
+        params = sharding.gather_params(params, cfg, mesh)
     return base.tree_map(tensor_to_numpy, stack_layers(params))
 
 
-def opt_state_to_numpy(state: OptState) -> OptState:
+def opt_state_to_numpy(state: OptState, cfg=None, mesh=None) -> OptState:
     """The port's AdamW state in the reference's layout with numpy leaves;
-    ``repro.training.optim.OptState(*out)`` takes its fields in order."""
-    return OptState(params_to_numpy(state.m), params_to_numpy(state.v),
+    ``repro.training.optim.OptState(*out)`` takes its fields in order.
+    ``cfg`` and ``mesh`` as ``params_to_numpy`` takes them."""
+    return OptState(params_to_numpy(state.m, cfg, mesh), params_to_numpy(state.v, cfg, mesh),
                     tensor_to_numpy(state.count))
 
 

@@ -76,21 +76,23 @@ class ProcessMesh(Mesh):
 
 
 def init_distributed(device=None, init_method: str | None = None, rank: int | None = None,
-                     world_size: int | None = None) -> torch.device:
+                     world_size: int | None = None, backend: str | None = None) -> torch.device:
     """Join the default process group (the counterpart of the devices that
     ``jax.devices()`` lists) and return this process's device: CUDA unless the
     caller names one (NCCL; ``cuda:LOCAL_RANK`` when no index is given), or
     the CPU (gloo). ``rank`` and ``world_size`` default to the launcher's
     ``RANK`` and ``WORLD_SIZE``, and ``init_method`` to ``env://``
-    (``MASTER_ADDR`` and ``MASTER_PORT``), as ``torchrun`` sets them. A
-    group already started is kept."""
+    (``MASTER_ADDR`` and ``MASTER_PORT``), as ``torchrun`` sets them.
+    ``backend="gloo"`` on CUDA lets several ranks share one card, which NCCL
+    refuses: gloo's all-reduce and all-gather take CUDA tensors through the
+    host. A group already started is kept."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         if dev.index is None:
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+        dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
                                 init_method=init_method or "env://",
                                 rank=-1 if rank is None else rank,
                                 world_size=-1 if world_size is None else world_size)

@@ -2,13 +2,17 @@
 
 Runs a real training loop on synthetic-but-learnable data with checkpoint
 rotation, async saves and crash-resume, on one card (or on the CPU when the
-caller asks for it), or data-parallel over a mesh of processes. On the card
-the attention of every layer is the hand-written flash kernel, its gradient
-the plain attention's.
+caller asks for it), or over a mesh of processes: data-parallel over its
+data axes, and tensor-parallel over its "model" axis. On the card the
+attention of every layer is the hand-written flash kernel, its gradient the
+plain attention's.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 300 --batch 16 --seq 128 [--device cpu]
   PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train ...
+
+The command line trains on the (world, 1) mesh, as the reference's does; a
+model axis is the caller's ``run(mesh=make_mesh((d, m), ("data", "model")))``.
 """
 
 from __future__ import annotations
@@ -55,18 +59,28 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     saves every ``ckpt_interval`` steps and at the end.
 
     ``mesh`` (a ``launch.mesh.ProcessMesh``; its device is the run's) trains
-    data-parallel over its data axes; without one inside a started process
-    group, the reference's (world, 1) ("data", "model") mesh. Every rank
-    draws the same parameters, takes its contiguous rows of each global
-    batch (``batch`` must divide by the data axes), and each step averages
-    the gradients and the loss over them in one all-reduce
-    (``train_step.make_train_step``); ``hist`` holds the global mean loss.
-    The steps run under ``set_mesh``, so a model axis above 1 sends the MoE
-    layers through ``moe.moe_apply_ep``; every other parameter stays
-    replicated and each model rank computes it alike. (The reference places
-    the dense layers' parameters over "model" by the sharding rules, for
-    GSPMD's tensor parallelism; that placement is not ported.) Rank 0 writes
-    the checkpoints, and every rank restores the same step."""
+    over its axes; without one inside a started process group, the
+    reference's (world, 1) ("data", "model") mesh. Every rank draws the same
+    parameters, takes its contiguous rows of each global batch (``batch``
+    must divide by the data axes), and each step averages the gradients and
+    the loss over them in one all-reduce (``train_step.make_train_step``);
+    ``hist`` holds the global mean loss.
+
+    A model axis above 1 places the parameters by the sharding rules, as the
+    reference's ``jax.device_put`` of ``param_shardings`` does
+    (``sharding.shard_params``): for the ``dense`` and ``vlm`` families and
+    ``moe`` without MLA, each rank keeps its block of every leaf the rules
+    split (attention heads, MLP width, vocabulary, experts or their width),
+    with its gradients and AdamW moments, and the steps, under
+    ``set_mesh``, are tensor-parallel (``parallel/tensor.py``); the MoE
+    layers take ``moe.moe_apply_ep`` where ``moe._moe_ffn`` picks it. The
+    families outside the placement (MLA, ``encdec``, ``ssm``, ``hybrid``)
+    keep every parameter whole, and each model rank computes them alike
+    (an MLA model's MoE layers still take ``moe_apply_ep`` where it is
+    picked, slicing the whole experts). The returned
+    ``params`` are this rank's (``sharding.gather_params`` makes them
+    whole). Checkpoints hold whole arrays, which rank 0 writes: every rank
+    restores the same step, on any mesh."""
     if mesh is None and dist.is_initialized():
         mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"), device)
     if mesh is None:
@@ -85,6 +99,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     api = registry.get_api(cfg)
     params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
                               device=dev)
+    params = sharding.shard_params(params, cfg, mesh)
     ocfg = optim.AdamWConfig(lr=lr, warmup=20, total_steps=steps)
     opt_state = optim.init(params)
 
@@ -92,7 +107,8 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     rows = slice(shard * batch // n_shards, (shard + 1) * batch // n_shards)
     step_fn = ts.make_train_step(cfg, ocfg, microbatches=microbatches, mesh=mesh)
 
-    mgr = CheckpointManager(ckpt_dir, interval=ckpt_interval) if ckpt_dir else None
+    mgr = (CheckpointManager(ckpt_dir, interval=ckpt_interval, cfg=cfg, mesh=mesh)
+           if ckpt_dir else None)
     start = 0
     if mgr is not None:
         restored = mgr.restore_latest((params, opt_state), device=dev)
@@ -115,12 +131,11 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
                           f"{float(metrics['grad_norm']):.3f} "
                           f"({(time.time()-t0)/max(step-start+1,1)*1000:.0f} ms/step)",
                           flush=True)
-            if writer and mgr is not None and mgr.should_save(step):
+            if mgr is not None and mgr.should_save(step):
                 mgr.save(step, (params, opt_state))
     if mgr is not None:
-        if writer:
-            mgr.save(steps, (params, opt_state))
-            mgr.wait()
+        mgr.save(steps, (params, opt_state))
+        mgr.wait()
         if mesh is not None:  # every rank returns once the final save is whole
             dist.barrier()
     return params, hist

@@ -5,6 +5,11 @@ Counterpart of ``repro.models.layers``. Parameters are dicts of tensors in
 the reference's layout (``x @ W``). Mixed dtypes follow JAX's promotion:
 ``bf16 * f32`` is f32 in both frameworks, but torch refuses a ``bf16 @ f32``
 product, so :func:`matmul` casts both sides to the promoted dtype first.
+
+The MLP, the embedding, the tied head and the cross-entropies take a
+``group``: the mesh's "model" process group where their parameters are
+split over it (``parallel/tensor.py``), None where they are whole, which is
+the one-device path unchanged.
 """
 
 from __future__ import annotations
@@ -13,10 +18,12 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import collectives as C
 
 
 def matmul(x, w):
@@ -109,13 +116,19 @@ def _act(x, act: str):
     return F.silu(x) if act == "silu" else F.gelu(x, approximate="tanh")
 
 
-def mlp(p, x, act: str = "silu"):
+def mlp(p, x, act: str = "silu", group=None):
+    """With ``group``, ``w_in`` and ``w_gate`` hold this rank's columns of the
+    width and ``w_out`` its rows (Megatron's MLP): the replicated ``x`` in,
+    the ranks' partial outputs summed."""
+    if group is not None:
+        x = C.replicated(x, group)
     h = matmul(x, p["w_in"])
     if "w_gate" in p:
         h = h * _act(matmul(x, p["w_gate"]), act)
     else:
         h = _act(h, act)
-    return matmul(h, p["w_out"])
+    out = matmul(h, p["w_out"])
+    return out if group is None else C.psum(out, group)
 
 
 # ---------------------------------------------------------------------------
@@ -129,28 +142,56 @@ def embedding_specs(vocab: int, d: int) -> dict:
     return {"table": ParamSpec((padded_vocab(vocab), d), ("vocab", "embed"))}
 
 
-def embed(p, tokens):
-    return p["table"][tokens]
+def embed(p, tokens, group=None):
+    """The tokens' rows. With ``group`` the table holds this rank's block of
+    the vocabulary: tokens outside it take zeros, and the ranks' rows are
+    summed."""
+    if group is None:
+        return p["table"][tokens]
+    rows = p["table"].shape[0]
+    local = tokens - dist.get_rank(group) * rows
+    inside = (local >= 0) & (local < rows)
+    out = p["table"][torch.where(inside, local, 0)]
+    return C.psum(torch.where(inside[..., None], out, 0), group)
 
 
-def lm_logits(p, x, true_vocab: int):
-    """Tied-embedding head; padded tail masked to -1e9."""
-    logits = matmul(x, p["table"].T)
-    pad = logits.shape[-1] - true_vocab
-    if pad:
+def lm_logits(p, x, true_vocab: int, group=None):
+    """Tied-embedding head; padded tail masked to -1e9. With ``group`` the
+    table holds this rank's block of the vocabulary: the replicated ``x`` to
+    this rank's columns of the logits, the mask on the global columns past
+    ``true_vocab``, wherever they fall."""
+    if group is None:
+        logits, start = matmul(x, p["table"].T), 0
+    else:
+        logits = matmul(C.replicated(x, group), p["table"].T)
+        start = dist.get_rank(group) * logits.shape[-1]
+    pad = start + logits.shape[-1] - true_vocab
+    if pad > 0:
         mask = torch.zeros(logits.shape[-1], dtype=logits.dtype, device=logits.device)
-        mask[true_vocab:] = -1e9
+        mask[max(true_vocab - start, 0):] = -1e9
         logits = logits + mask
     return logits
 
 
-def _token_xent(logits, labels, ignore: int = -1):
-    """Per-token cross entropy in f32 and the mask of counted tokens."""
+def _token_xent(logits, labels, ignore: int = -1, group=None):
+    """Per-token cross entropy in f32 and the mask of counted tokens. With
+    ``group`` the logits are this rank's block of the vocabulary: the
+    log-sum-exp takes the ranks' max and sums their exponentials, and the
+    target's logit comes from the rank that holds it."""
     logits = logits.float()
     mask = labels != ignore
     lab = torch.clamp(labels, min=0).long()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    if group is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+        return (lse - ll) * mask, mask
+    n = logits.shape[-1]
+    m = C.pmax(logits.amax(dim=-1), group)
+    lse = torch.log(C.psum(torch.exp(logits - m[..., None]).sum(-1), group)) + m
+    local = lab - dist.get_rank(group) * n
+    inside = (local >= 0) & (local < n)
+    ll = torch.gather(logits, -1, torch.clamp(local, 0, n - 1)[..., None])[..., 0]
+    ll = C.psum(torch.where(inside, ll, 0.0), group)
     return (lse - ll) * mask, mask
 
 
@@ -164,13 +205,14 @@ def remat(on: bool, fn, *args):
     return fn(*args)
 
 
-def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int):
+def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int, group=None):
     """Sequence-chunked tied-embedding cross-entropy.
 
     Live logits are capped at (B, chunk, V): each chunk's logits are dropped
     after its forward and recomputed in the backward (``checkpoint``, where
     the reference has ``jax.checkpoint`` over a ``lax.scan``). The chunks'
-    sums are added in order, as the scan's carry adds them.
+    sums are added in order, as the scan's carry adds them. ``group`` as
+    ``lm_logits`` takes it: each rank's live logits are (B, chunk, V / tp).
     """
     b, s, d = x.shape
     n = s // chunk
@@ -178,7 +220,8 @@ def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int):
         raise ValueError(f"sequence {s} is not a multiple of xent_chunk {chunk}")
 
     def body(xc, lc):
-        loss, mask = _token_xent(lm_logits(embed_params, xc, true_vocab), lc)
+        loss, mask = _token_xent(lm_logits(embed_params, xc, true_vocab, group), lc,
+                                 group=group)
         return loss.sum(), mask.sum(dtype=torch.int32)
 
     loss = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -192,7 +235,8 @@ def tied_xent_chunked(embed_params, x, labels, true_vocab: int, chunk: int):
     return loss / torch.clamp(cnt, min=1)
 
 
-def softmax_xent(logits, labels, ignore: int = -1):
-    """Token-mean cross entropy in f32; ``ignore`` labels are masked."""
-    loss, mask = _token_xent(logits, labels, ignore)
+def softmax_xent(logits, labels, ignore: int = -1, group=None):
+    """Token-mean cross entropy in f32; ``ignore`` labels are masked. With
+    ``group`` the logits are this rank's block of the vocabulary."""
+    loss, mask = _token_xent(logits, labels, ignore, group)
     return loss.sum() / torch.clamp(mask.sum(), min=1)

@@ -9,7 +9,12 @@ run through the experts as batched products, and combined by router
 weight. Under a mesh with a model axis above 1 (``launch.mesh.set_mesh``),
 ``_moe_ffn`` takes the expert-parallel dispatch ``moe_apply_ep`` where the
 reference takes its ``shard_map``: tokens split over "model", routed to
-their experts' rank by ``all_to_all``. With ``cfg.mla`` each layer's
+their experts' rank by ``all_to_all``. Where ``launch.train.run`` placed
+the parameters by the sharding rules (every MoE config without MLA), the
+attention, the dense MLPs, the shared experts and the vocabulary are
+tensor-parallel as in ``transformer.py``, and ``moe_apply`` computes each
+rank's experts (or each expert's block of its width) from the replicated
+routing. With ``cfg.mla`` each layer's
 attention is ``models/mla.py``'s, and the cache holds its latents (c_kv,
 k_rope) in place of K and V.
 
@@ -36,6 +41,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamSpec, tree_map
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel import tensor
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -115,6 +121,15 @@ def moe_apply(p, x, cfg: ModelConfig):
     probabilities, and the stable sort keeps each expert's assignments in
     token order, so the capacity drop removes exactly the reference's. No
     step reads a value back to the host (``capacity`` comes from the shapes).
+
+    Expert weights split over "model" (the rules' placement): by experts,
+    each rank fills and runs only its experts' capacity rows; by their FFN
+    width (``moe_ff``, where the experts do not divide the axis), each rank
+    runs every row through its block of the width. Either way the routing,
+    the capacity and the aux loss are computed whole on every rank from the
+    replicated router, the dispatched rows and the combine weights enter
+    through ``replicated`` (their cotangents are partial on each rank), and
+    the ranks' combined outputs are summed.
     """
     b, s, d = x.shape
     n = b * s
@@ -137,15 +152,33 @@ def moe_apply(p, x, cfg: ModelConfig):
     cap = capacity(cfg, n)
     slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
 
-    buf = ops.at_set(x.new_zeros((e * cap, d)), slot, xf[:, None])
-    yb = _experts(buf.reshape(e, cap, d), p["w_in"], p["w_gate"], p["w_out"], x.dtype)
+    e_loc = p["w_in"].shape[0]
+    e_group = tensor.split_group(e_loc, e)
+    group = e_group if e_group is not None else tensor.split_group(p["w_in"].shape[-1],
+                                                                   cfg.moe_d_ff)
+    xd = xf
+    if group is not None:
+        xd, w = C.replicated(xf, group), C.replicated(w, group)
+    if e_group is not None:  # this rank's experts' rows; the others' dropped here
+        lo = tensor.rank(e_group) * e_loc * cap
+        slot = torch.where((slot >= lo) & (slot < lo + e_loc * cap), slot - lo, e_loc * cap)
+
+    buf = ops.at_set(x.new_zeros((e_loc * cap, d)), slot, xd[:, None])
+    yb = _experts(buf.reshape(e_loc, cap, d), p["w_in"], p["w_gate"], p["w_out"], x.dtype)
 
     # ---- combine: the reference scatter-adds in sorted (expert-id) order ----
-    y = _combine(yb.reshape(e * cap, d), slot, w, idx)
+    y = _combine(yb.reshape(e_loc * cap, d), slot, w, idx)
+    if group is not None:
+        y = C.psum(y, group)
 
     if cfg.n_shared_experts:
-        y = y + L.mlp(p["shared"], xf, cfg.act).float()
+        y = y + L.mlp(p["shared"], xf, cfg.act, _shared_group(p, cfg)).float()
     return y.reshape(b, s, d).to(x.dtype), aux
+
+
+def _shared_group(p, cfg: ModelConfig):
+    """The "model" group where the shared experts' width is split, else None."""
+    return tensor.mlp_group(p["shared"], cfg.moe_d_ff * cfg.n_shared_experts)
 
 
 def moe_apply_ep(p, x, cfg: ModelConfig, mesh):
@@ -159,6 +192,10 @@ def moe_apply_ep(p, x, cfg: ModelConfig, mesh):
     output. Over the data axes each rank passes its own rows (the batch as
     ``parallel/sharding.py`` places it; the reference's ``P(dp, "model")``),
     and the parameters' gradients are left to the step's mean over them.
+    Expert weights that the placement already split over "model" (E / tp
+    each) are this rank's; whole ones are sliced here. Shared experts whose
+    width is split run tensor-parallel on the whole sequence, and each rank
+    adds its chunk of their output.
 
     Each model rank routes its chunk of the sequence and holds E / tp
     experts. Its assignments go to their expert's rank in a send buffer of
@@ -178,7 +215,8 @@ def moe_apply_ep(p, x, cfg: ModelConfig, mesh):
     n = b * s
     xf = x_loc.reshape(n, d)
     router = C.replicated(p["router"], gm)
-    w_in, w_gate, w_out = (C.shard(p[name], gm, 0) for name in ("w_in", "w_gate", "w_out"))
+    w_in, w_gate, w_out = (p[name] if p[name].shape[0] == e_loc else C.shard(p[name], gm, 0)
+                           for name in ("w_in", "w_gate", "w_out"))
 
     probs, w, idx = _route(xf, router, k)  # idx: (n, k) global expert ids
 
@@ -223,7 +261,11 @@ def moe_apply_ep(p, x, cfg: ModelConfig, mesh):
     # combine: the reference scatter-adds in its send order (by destination rank)
     y = _combine(back, slot, w, dest)
 
-    if cfg.n_shared_experts:
+    shared_group = _shared_group(p, cfg) if cfg.n_shared_experts else None
+    if shared_group is not None:
+        shared = L.mlp(p["shared"], x, cfg.act, shared_group)
+        y = y + C.shard(shared, gm, 1).reshape(n, d).float()
+    elif cfg.n_shared_experts:
         shared = tree_map(lambda v: C.replicated(v, gm), p["shared"])
         y = y + L.mlp(shared, xf, cfg.act).float()
     return C.unshard(y.reshape(b, s, d).to(x.dtype), gm, 1), aux
@@ -241,7 +283,12 @@ def _ambient_mesh():
 def _moe_ffn(cfg: ModelConfig, p, xn):
     """Dispatch selector, the reference's: the expert-parallel dispatch under
     ``cfg.moe_hints`` and an ambient mesh whose model axis divides the
-    experts and the sequence, else ``moe_apply``."""
+    experts and the sequence, else ``moe_apply``. The choice reads the
+    config and the mesh only, as the reference's does, never the placement;
+    each dispatch then takes the expert weights as the placement left them:
+    ``moe_apply_ep`` this rank's E / tp experts (or slices whole ones), and
+    ``moe_apply`` whole weights on one device or on a family the placement
+    leaves whole (MLA), else this rank's experts or block of their width."""
     if cfg.moe_hints:
         mesh = _ambient_mesh()
         if (mesh is not None and cfg.n_experts % mesh.shape["model"] == 0
@@ -303,12 +350,13 @@ def specs(cfg: ModelConfig) -> dict:
 
 def _dense_layer(cfg: ModelConfig, lp, x, positions):
     h = x + _attn_apply(cfg, lp["attn"], T.norm(cfg, lp["ln1"], x), positions)
-    return h + L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), cfg.act)
+    return h + L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), cfg.act,
+                     tensor.mlp_group(lp["mlp"], cfg.d_ff))
 
 
 def forward(params, batch, cfg: ModelConfig):
     """Returns (hidden (B, S, D), aux_loss)."""
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = L.embed(params["embed"], batch["tokens"], T.vocab_group(params, cfg)).to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
 
     def dense_body(x, lp):
@@ -329,20 +377,21 @@ def forward(params, batch, cfg: ModelConfig):
 
 def loss_fn(params, batch, cfg: ModelConfig):
     x, aux = forward(params, batch, cfg)
-    logits = L.lm_logits(params["embed"], x, cfg.vocab)
-    loss = L.softmax_xent(logits, batch["labels"])
+    group = T.vocab_group(params, cfg)
+    logits = L.lm_logits(params["embed"], x, cfg.vocab, group)
+    loss = L.softmax_xent(logits, batch["labels"], group=group)
     if cfg.mtp_depth:
         # DeepSeek-V3 MTP (depth 1): predict token t+2 from [h_t ; emb(t+1)].
         nxt = batch["labels"]  # token at t+1
-        emb_next = L.embed(params["embed"], torch.clamp(nxt, min=0)).to(cfg.dtype)
+        emb_next = L.embed(params["embed"], torch.clamp(nxt, min=0), group).to(cfg.dtype)
         dt = torch.promote_types(x.dtype, emb_next.dtype)
         h2 = L.matmul(torch.cat([x.to(dt), emb_next.to(dt)], dim=-1), params["mtp"]["proj"])
         h2 = _dense_layer(cfg, params["mtp"]["block"], h2,
                           torch.arange(x.shape[1], device=x.device))
         h2 = T.norm(cfg, params["mtp"]["ln"], h2)
-        logits2 = L.lm_logits(params["embed"], h2[:, :-1], cfg.vocab)
+        logits2 = L.lm_logits(params["embed"], h2[:, :-1], cfg.vocab, group)
         mtp_labels = batch["labels"][:, 1:]  # token at t+2
-        loss = loss + cfg.mtp_loss_coef * L.softmax_xent(logits2, mtp_labels)
+        loss = loss + cfg.mtp_loss_coef * L.softmax_xent(logits2, mtp_labels, group=group)
     return loss + aux
 
 

@@ -10,6 +10,13 @@ tier). Layers are a Python list of per-layer parameter dicts instead of a
 stacked axis scanned by ``lax.scan``; the KV cache keeps the reference's
 stacked (L, B, S, Hk, Dh) layout. ``family == "vlm"`` prepends precomputed
 image embeddings to the sequence, as the reference's internvl2 backbone does.
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules, ``parallel/sharding.py``), the training
+forward is tensor-parallel (``parallel/tensor.py``): each rank computes its
+query heads, its block of the MLP width and its block of the vocabulary,
+and the row-parallel products sum the ranks' parts. Whole parameters take
+the one-device path.
 """
 
 from __future__ import annotations
@@ -23,6 +30,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import base
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import tensor
 
 
 def norm_specs(cfg: ModelConfig):
@@ -48,17 +57,35 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True):
+def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True, group=None):
+    """Queries, keys and values (B, S, heads, Dh), the head counts read off
+    the weights' shapes. With ``group`` (the query heads split over "model")
+    they are this rank's heads, from the replicated ``x``. Where the KV heads
+    stay whole (their count does not divide the model axis), every rank
+    projects them all and keeps those its queries read
+    (``tensor.kv_heads_for``); the whole weights' cotangents are then partial
+    on each rank, and ``replicated`` sums them."""
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    h, hk = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
+    kv_whole = group is not None and hk == cfg.n_kv_heads
 
-    def proj(w, bias):
-        y = L.matmul(x, p[w])
-        return y + p[bias] if bias in p else y
+    def param(name):
+        return C.replicated(p[name], group) if kv_whole and name not in ("wq", "bq") else p[name]
 
-    q = proj("wq", "bq").reshape(b, s, h, dh)
-    k = proj("wk", "bk").reshape(b, s, hk, dh)
-    v = proj("wv", "bv").reshape(b, s, hk, dh)
+    ws = [param(w) for w in ("wq", "wk", "wv")]
+    ys = (tensor.column(x, ws, group) if group is not None
+          else [L.matmul(x, w) for w in ws])
+    ys = [y + param(bias) if bias in p else y for y, bias in zip(ys, ("bq", "bk", "bv"))]
+    q = ys[0].reshape(b, s, h, dh)
+    k = ys[1].reshape(b, s, hk, dh)
+    v = ys[2].reshape(b, s, hk, dh)
+    if kv_whole:
+        sel = tensor.kv_heads_for(group, h, cfg.n_heads, cfg.n_kv_heads)
+        if isinstance(sel, tuple):
+            k, v = k[:, :, sel[0]:sel[0] + sel[1]], v[:, :, sel[0]:sel[0] + sel[1]]
+        else:  # one KV head for each local query head
+            k, v = k.index_select(2, sel.to(k.device)), v.index_select(2, sel.to(v.device))
     if rope:
         q = L.apply_rope(q, positions, cfg.rope_theta)
         k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -77,10 +104,13 @@ def train_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
 
 
 def attn_block(p, x, cfg: ModelConfig, positions):
+    """Self-attention of a training forward; where the query heads are split
+    over "model", over this rank's heads, ``wo`` row-parallel."""
     b, s, _ = x.shape
-    q, k, v = qkv(p, x, cfg, positions)
-    o = train_attention(q, k, v, cfg)
-    return L.matmul(o.reshape(b, s, -1), p["wo"])
+    group = tensor.split_group(p["wq"].shape[-1], cfg.n_heads * cfg.head_dim)
+    q, k, v = qkv(p, x, cfg, positions, group=group)
+    o = train_attention(q, k, v, cfg).reshape(b, s, -1)
+    return L.matmul(o, p["wo"]) if group is None else tensor.row(o, p["wo"], group)
 
 
 def stack_specs(n: int, tree):
@@ -107,8 +137,13 @@ def specs(cfg: ModelConfig) -> dict:
     }
 
 
+def vocab_group(params, cfg: ModelConfig):
+    """The "model" group where the embedding table's rows are split, else None."""
+    return tensor.split_group(params["embed"]["table"].shape[0], L.padded_vocab(cfg.vocab))
+
+
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = L.embed(params["embed"], batch["tokens"], vocab_group(params, cfg)).to(cfg.dtype)
     if cfg.family == "vlm" and "img_embeds" in batch:
         x = torch.cat([batch["img_embeds"].to(cfg.dtype), x], dim=1)
     return x
@@ -123,7 +158,8 @@ def forward(params, batch, cfg: ModelConfig):
 
     def layer(x, lp):
         h = x + attn_block(lp["attn"], norm(cfg, lp["ln1"], x), cfg, positions)
-        return h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
+        return h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act,
+                         tensor.mlp_group(lp["mlp"], cfg.d_ff))
 
     for lp in params["layers"]:
         x = L.remat(cfg.remat, layer, x, lp)
@@ -138,9 +174,10 @@ def loss_fn(params, batch, cfg: ModelConfig):
     labels = batch["labels"]
     if cfg.family == "vlm" and "img_embeds" in batch:
         x = x[:, batch["img_embeds"].shape[1]:]
+    group = vocab_group(params, cfg)
     if cfg.xent_chunk:
-        return L.tied_xent_chunked(params["embed"], x, labels, cfg.vocab, cfg.xent_chunk)
-    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab), labels)
+        return L.tied_xent_chunked(params["embed"], x, labels, cfg.vocab, cfg.xent_chunk, group)
+    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab, group), labels, group=group)
 
 
 # ---------------------------------------------------------------------------

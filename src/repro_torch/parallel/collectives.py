@@ -143,6 +143,32 @@ def replicated(x, group):
     return _Replicated.apply(x, group)
 
 
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(x, group):
+    """``lax.psum`` over ``group`` of each rank's own part: the sum, held by
+    all (the all-reduce after a row-parallel product, Megatron's "g"). Its
+    cotangent is replicated, and each rank's part takes it whole (JAX's
+    transpose, no communication)."""
+    return _PSum.apply(x, group)
+
+
+def pmax(x, group):
+    """The elementwise max over ``group``, held by all, outside autograd (the
+    shift of a vocab-parallel log-sum-exp, whose value cancels)."""
+    x = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
 def mean_over(tensors, group):
     """Each of ``tensors``' mean over ``group``, outside autograd, in one
     all-reduce: flattened into one float32 buffer, summed, divided by the

@@ -12,14 +12,27 @@ another axis where the default cannot shard (granite's 40 experts on a
 
 The results are :class:`~repro_torch.models.base.NamedSharding` trees:
 specs over a mesh, with shard shapes and ``torch.distributed.tensor``
-placements. Nothing here needs a process group.
+placements. Nothing there needs a process group.
+
+At runtime (``launch.train.run`` on a ``launch.mesh.ProcessMesh``) the
+same rules place the parameters, as the reference's ``jax.device_put`` of
+``param_shardings`` does: ``shard_params`` keeps each rank's block of every
+leaf whose spec splits it over "model", and ``gather_params`` all-gathers
+the blocks into whole leaves again (checkpoints, ``convert``). Families the
+runtime keeps whole (``parallel.tensor.placed``: MLA, encdec, ssm, hybrid)
+pass through both unchanged.
 """
 
 from __future__ import annotations
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import base
+from repro_torch.models import base, registry
 from repro_torch.models.base import NamedSharding, PartitionSpec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import tensor
+from repro_torch.training.optim import OptState
 
 
 def data_axes(mesh) -> tuple:
@@ -55,6 +68,69 @@ def make_rules(cfg: ModelConfig, mesh) -> dict:
 
 def param_shardings(cfg: ModelConfig, specs, mesh):
     return base.param_shardings(specs, mesh, make_rules(cfg, mesh))
+
+
+def split_dims(cfg: ModelConfig, mesh) -> list:
+    """For each leaf of ``cfg``'s parameter tree (``tree_leaves`` order), the
+    dim that the runtime splits over "model" on ``mesh``, or None: the rules'
+    ``param_pspecs`` for a placed family, None everywhere for the others and
+    on a model axis of 1. The params are never split over a data axis."""
+    specs = registry.get_api(cfg).specs()
+    if not tensor.placed(cfg) or tp_size(mesh) == 1:
+        return [None] * len(base.tree_leaves(specs))
+    pspecs = base.param_pspecs(specs, mesh, make_rules(cfg, mesh))
+    return [next((d for d, ax in enumerate(ps) if ax == "model"), None)
+            for ps in base.tree_leaves(pspecs)]
+
+
+def _map_placed(fn, tree, cfg, mesh):
+    """``fn(leaf, dim)`` on each leaf of a parameter tree, or of each
+    parameter-shaped tree in ``tree``: an ``OptState``'s moments (its count
+    kept), or a tuple of such trees."""
+    if isinstance(tree, OptState):
+        return OptState(_map_placed(fn, tree.m, cfg, mesh), _map_placed(fn, tree.v, cfg, mesh),
+                        tree.count)
+    if isinstance(tree, tuple):
+        return tuple(_map_placed(fn, t, cfg, mesh) for t in tree)
+    dims = split_dims(cfg, mesh)
+    return base.tree_unflatten(tree, [fn(t, d) for t, d in zip(base.tree_leaves(tree), dims)])
+
+
+def shard_params(params, cfg: ModelConfig, mesh):
+    """This rank's block of each leaf that the rules split over ``mesh``'s
+    "model" axis (the blocks in rank order, as GSPMD tiles a dim), a copy of
+    its own; whole leaves are kept as they are. Takes a parameter tree, an
+    ``OptState`` or a tuple of them."""
+    if mesh is None or tp_size(mesh) == 1:
+        return params
+    tp, r = tp_size(mesh), mesh.axis_index("model")
+    return _map_placed(lambda t, d: t if d is None else t.chunk(tp, d)[r].clone(),
+                       params, cfg, mesh)
+
+
+def whole_like(params, cfg: ModelConfig, mesh):
+    """Meta-device stand-ins of ``params``' whole leaves (their shapes before
+    ``shard_params``, their dtypes): what a checkpoint of them holds."""
+    tp = tp_size(mesh)
+
+    def whole(t, d):
+        shape = list(t.shape)
+        if d is not None:
+            shape[d] *= tp
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+
+    return _map_placed(whole, params, cfg, mesh)
+
+
+@torch.no_grad()
+def gather_params(params, cfg: ModelConfig, mesh):
+    """The inverse of ``shard_params``: every split leaf all-gathered whole
+    over "model" (a collective: every rank of the mesh calls it, and every
+    rank gets the whole tree)."""
+    if mesh is None or tp_size(mesh) == 1:
+        return params
+    gm = mesh.group("model")
+    return _map_placed(lambda t, d: t if d is None else C.unshard(t, gm, d), params, cfg, mesh)
 
 
 def _spec_for(shape, axes, rules, mesh) -> PartitionSpec:

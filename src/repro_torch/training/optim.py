@@ -9,7 +9,8 @@ second copy of the moments, 8.8 GB at tinyllama-1.1b's size. The
 reference's docstring names ZeRO-style moment sharding, but its code has
 none (``opt_state_specs`` mirrors the parameters' specs, and its launcher
 never places the moments): here, as there, every data rank holds the
-moments whole.
+moments of the parameters it holds, which on a model axis above 1 are this
+rank's blocks of the split parameters (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from repro_torch.models import base
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import collectives as C
 
 
 @dataclass(frozen=True)
@@ -67,15 +69,27 @@ def schedule(cfg: AdamWConfig, step):
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in base.tree_leaves(tree)))
+def global_norm(tree, split=None, group=None):
+    """The L2 norm of every leaf of ``tree`` together. With ``group`` (the
+    mesh's "model" group) the leaves that ``split`` marks (one flag a leaf)
+    are this rank's blocks: their squares are summed over the group, and the
+    whole leaves, alike on every rank, are counted once."""
+    squares = [torch.sum(torch.square(g.float())) for g in base.tree_leaves(tree)]
+    if group is None:
+        return torch.sqrt(sum(squares))
+    zero = torch.zeros_like(squares[0])
+    parts = sum((sq for sq, s in zip(squares, split) if s), zero)
+    whole = sum((sq for sq, s in zip(squares, split) if not s), zero)
+    return torch.sqrt(C.psum(parts, group) + whole)
 
 
 @torch.no_grad()
-def update(cfg: AdamWConfig, params, grads, state: OptState):
+def update(cfg: AdamWConfig, params, grads, state: OptState, split=None, group=None):
     """One AdamW step, in place. Returns (params, state, metrics): the same
-    parameter and moment tensors, overwritten, and a new step count."""
-    gnorm = global_norm(grads)
+    parameter and moment tensors, overwritten, and a new step count.
+    ``split`` and ``group``, for parameters split over a model axis, as
+    ``global_norm`` takes them: the clipping reads the whole model's norm."""
+    gnorm = global_norm(grads, split, group)
     # a tensor numerator: torch computes `scalar / tensor` as a reciprocal times the scalar
     scale = torch.clamp(torch.full_like(gnorm, cfg.clip_norm) / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

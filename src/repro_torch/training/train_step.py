@@ -9,6 +9,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import base, registry
 from repro_torch.parallel import collectives as C
+from repro_torch.parallel import sharding
 from repro_torch.training import optim
 
 
@@ -48,10 +49,20 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     With ``mesh`` (a ``launch.mesh.ProcessMesh``), ``batch`` is this rank's
     share along the data axes, and after the accumulation the step makes one
     all-reduce over them: the gradients' mean and the loss's, the
-    reference's deferred psum. Every rank then runs the same update.
+    reference's deferred psum. Every rank then runs the same update. Where
+    the mesh's model axis splits the parameters (``sharding.shard_params``),
+    each rank's ``params`` and gradients are its blocks: the forward's
+    collectives already sum every gradient over "model" that needs it (the
+    whole leaves' partial cotangents through ``collectives.replicated``), so
+    the step adds none, and the clipping norm sums the blocks' squares over
+    "model" (``optim.global_norm``).
     """
     api = registry.get_api(cfg)
     loss_fn = api.loss_fn
+    split = group = None
+    if mesh is not None and sharding.tp_size(mesh) > 1:
+        split = [d is not None for d in sharding.split_dims(cfg, mesh)]
+        group = mesh.group("model") if any(split) else None
 
     def train_step(params, opt_state, batch):
         if microbatches == 1:
@@ -75,7 +86,7 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
         if mesh is not None:
             loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
             grads = base.tree_unflatten(grads, leaves)
-        params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state)
+        params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state, split, group)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

@@ -18,11 +18,16 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch import convert
 from repro_torch.configs import ARCHS, smoke_variant
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as M
-from repro_torch.models import base, moe
+from repro_torch.models import base, moe, registry
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel import compression as comp
+from repro_torch.parallel import sharding
+from repro_torch.training import optim
+from repro_torch.training import train_step as ts
 
 SPAWN_TIMEOUT_S = 300
 # the EP cases: mesh shapes (data, model) and MoE variants (``moe_cfg``)
@@ -164,10 +169,18 @@ def f32_materialize():
     return orig
 
 
+def run_cfg(kw):
+    """The config ``launch.train.run`` trains for its keyword arguments."""
+    if kw.get("cfg") is not None:
+        return kw["cfg"]
+    return smoke_variant(ARCHS[kw["arch"]]) if kw.get("smoke", True) else ARCHS[kw["arch"]]
+
+
 def train_runs(jobs):
     """``launch.train.run`` on this rank, once per job: (mesh shape, run's
     keyword arguments, f32 parameters). Returns each run's hist, final
-    parameters (numpy, f32) and how many times it called ``moe_apply_ep``."""
+    parameters (gathered whole where the mesh split them; numpy, f32) and
+    how many times it called ``moe_apply_ep``."""
     from repro_torch.launch import train
 
     ep = moe.moe_apply_ep
@@ -189,6 +202,7 @@ def train_runs(jobs):
             finally:
                 if orig is not None:
                     base.materialize = orig
+            params = sharding.gather_params(params, run_cfg(kw), mesh)
             out.append(dict(hist=hist, ep_calls=calls[0],
                             params={k: v.float().numpy()
                                     for k, v in base.tree_paths(params).items()}))
@@ -210,3 +224,101 @@ def numpy_inputs(cfg, seed: int, b: int, s: int) -> dict:
     out["dy"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
     out["daux"] = np.float32(rng.uniform(1, 3))
     return out
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism (tests/test_torch_tensor_parallel.py)
+# --------------------------------------------------------------------------
+def tp_cfg(case):
+    """A tensor-parallel case's config: the smoke variant of ``arch`` with
+    its overrides, in bf16 where the case says so."""
+    cfg = smoke_variant(ARCHS[case["arch"]]).with_(**case["overrides"])
+    return cfg.with_(dtype=torch.bfloat16) if case["dtype"] == "bfloat16" else cfg
+
+
+def tp_case(case, inputs):
+    """The loss and the gradients of one case on this rank, as a step on the
+    case's mesh computes them: the parameters (the reference's layout,
+    numpy) carried over by ``convert`` and placed by ``shard_params``, this
+    rank's rows of the batch over the data axis, the loss and gradients
+    averaged over it (``collectives.mean_over``, as the step does), the
+    clipping norm over the mesh (``optim.global_norm``), and the gradients
+    gathered whole (``convert.params_to_numpy`` of the sharded tree)."""
+    cfg = tp_cfg(case)
+    api = registry.get_api(cfg)
+    mesh = M.make_mesh(tuple(case["mesh"]), ("data", "model"), "cpu")
+    params = convert.params_from_numpy(inputs["params"], cfg, "cpu")
+    if case["dtype"] == "bfloat16":
+        params = base.tree_map(lambda t: t.to(torch.bfloat16), params)
+    params = sharding.shard_params(params, cfg, mesh)
+    dp, d = mesh.shape["data"], mesh.axis_index("data")
+    rows = slice(d * inputs["tokens"].shape[0] // dp, (d + 1) * inputs["tokens"].shape[0] // dp)
+    batch = {k: torch.from_numpy(v[rows]) for k, v in inputs.items() if k != "params"}
+    with M.set_mesh(mesh):
+        loss, grads = ts.value_and_grad(api.loss_fn, params, batch, api.idle_params)
+    loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
+    grads = base.tree_unflatten(grads, leaves)
+    split = [dim is not None for dim in sharding.split_dims(cfg, mesh)]
+    gnorm = optim.global_norm(grads, split, mesh.group("model"))
+    return dict(loss=float(loss), grad_norm=float(gnorm), n_split=sum(split),
+                grads=base.tree_paths(convert.params_to_numpy(grads, cfg, mesh)))
+
+
+def tp_cases(cases, inputs):
+    """Every case of this world's size on this rank, keyed by its name."""
+    world = dist.get_world_size()
+    return {c["name"]: tp_case(c, inputs[c["name"]]) for c in cases
+            if c["mesh"][0] * c["mesh"][1] == world}
+
+
+def placement_bytes(archs, shape):
+    """This rank's bytes of parameters and AdamW state as ``launch.train.run``
+    places them on a mesh of ``shape``: each arch's smoke variant drawn in
+    its specs' dtypes, then ``shard_params``."""
+    mesh = M.make_mesh(shape, ("data", "model"), "cpu")
+    out = {}
+    for arch, overrides in archs:
+        cfg = smoke_variant(ARCHS[arch]).with_(**overrides)
+        params = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(0))
+        params = sharding.shard_params(params, cfg, mesh)
+        out[arch, tuple(sorted(overrides.items()))] = dict(
+            params=dryrun.tree_bytes(params), opt_state=dryrun.tree_bytes(optim.init(params)))
+    return out
+
+
+def ckpt_across_meshes(shape, save_dir, restore_dir):
+    """Checkpoints across meshes, on a mesh of ``shape``: one train step of
+    smoke tinyllama (its specs' bf16) placed over the mesh, saved by
+    ``CheckpointManager(cfg=, mesh=)`` into ``save_dir``; then the newest
+    checkpoint of ``restore_dir`` (written without a mesh) restored into the
+    placement. Both trees come back gathered whole, numpy by dotted path."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    cfg = smoke_variant(ARCHS["tinyllama-1.1b"])
+    mesh = M.make_mesh(shape, ("data", "model"), "cpu")
+    params = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(0))
+    params = sharding.shard_params(params, cfg, mesh)
+    state = optim.init(params)
+    batch = {k: torch.from_numpy(v) for k, v in ckpt_batch(cfg).items()}
+    step = ts.make_train_step(cfg, optim.AdamWConfig(lr=1e-3, warmup=1), mesh=mesh)
+    with M.set_mesh(mesh):
+        params, state, _ = step(params, state, batch)
+    mgr = CheckpointManager(save_dir, async_=False, cfg=cfg, mesh=mesh)
+    mgr.save(1, (params, state))
+    saved = sharding.gather_params((params, state), cfg, mesh)
+    _, restored, _ = CheckpointManager(restore_dir, cfg=cfg, mesh=mesh).restore_latest(
+        (params, state), device="cpu")
+    restored_bytes = dryrun.tree_bytes(restored)
+    restored = sharding.gather_params(restored, cfg, mesh)
+
+    def host(tree):
+        return {k: v.numpy() if v.dtype != torch.bfloat16 else v.view(torch.int16).numpy()
+                for k, v in base.tree_paths(tree).items()}
+
+    return dict(saved=host(saved), restored=host(restored), restored_bytes=restored_bytes)
+
+
+def ckpt_batch(cfg, b: int = 4, s: int = 16) -> dict:
+    """The checkpoint cases' one batch, drawn by numpy."""
+    rng = np.random.default_rng(5)
+    return {k: rng.integers(0, cfg.vocab, (b, s)).astype(np.int32) for k in ("tokens", "labels")}
