@@ -15,7 +15,8 @@ Phases, one JSON line each:
               MLA prefill, 128 heads with q and k 192 wide over v 128 wide, and
               at whisper-medium's encoder (1500 frames) and cross-attention (416
               queries over 1500 frames), both without the causal mask, f32 and
-              bf16, and a ragged MLA case) and at the CPU tests' shapes
+              bf16, and a ragged MLA case; and at the rank-local heads of the
+              parallel phase's tensor-parallel training) and at the CPU tests' shapes
               (quantize_pages by both entries: contiguous pages, and the store into
               the tier pools, every pool tensor exact)
   4. path     the tiered serve step on the card against the same step on the CPU,
@@ -163,8 +164,12 @@ Phases, one JSON line each:
               launch.mesh.make_mesh((1, 1), ("data", "model")) over it; (b)
               launch.train.run of tinyllama-1.1b at the train phase's shape (bf16,
               remat, batch 4 x 2048), 4 steps with mesh=None before the group
-              starts and 4 on the mesh: losses and final parameters bit-equal,
-              44 flash launches a step, ms per step of both; (c) moe.moe_apply_ep
+              starts and 4 on the mesh: losses and final parameters bit-equal
+              (on one data rank the step skips its data mean, the identity), 44
+              flash launches a step, ms per step of both; then that mean itself,
+              collectives.mean_over over the NCCL group on the loss and gradients
+              of one step at the final parameters, bit-equal to its input, and
+              its ms; (c) moe.moe_apply_ep
               at granite-moe-3b-a800m's widths (40 experts top-8, d_model 1536,
               moe_d_ff 512) on 4 x 2048 tokens, tp = 1, forward and backward,
               against moe.moe_apply at capacity factor E / K where neither drops
@@ -180,13 +185,29 @@ Phases, one JSON line each:
               gloo group (NCCL refuses two ranks on one GPU; gloo carries CUDA
               tensors through the host) on the (1, 2) mesh, launch.train.run
               placing tinyllama-1.1b's parameters by the sharding rules: (f1) 2
-              layers in f32, 2 steps of 2 x 256, losses and the gathered final
-              parameters against one process within the CPU tests' tolerances;
+              layers in f32, 2 steps of 2 x 256, losses, each step's grad norm
+              and the gathered final parameters against one process within the
+              CPU tests' tolerances;
               (f2) the full model in bf16, 3 steps of 2 x 2048, losses within
               2e-3 of one process's, 44 flash launches a step on each rank at its
               16 heads over 2 KV heads, each rank's parameter, gradient and AdamW
               bytes and peak memory beside one process's, ms a step and the host
-              ms inside gloo's all-reduces (one card: not tensor-parallel speed)
+              ms inside gloo's all-reduces (one card: not tensor-parallel speed);
+              (g) the other families the same way on (1, 2), whisper-medium,
+              deepseek-v3-671b (MLA, dense-first layers, MTP), xlstm-125m and
+              zamba2-2.7b, each after its one-process runs, each through
+              launch.train.run(cfg=, mesh=) (whisper's step built as run builds
+              it, on batches that carry its frames): (g1) at cut depth in f32, 2
+              steps, the losses, each step's grad norm and each rank's blocks of
+              the final parameters against one process within (f1)'s
+              tolerances; (g2) at full widths in bf16 (deepseek-v3 at its 3 dense
+              layers and MTP, zamba2 at 9 layers, the recurrent two on short
+              sequences), 2 steps: losses within 2e-3 of one process's, each
+              rank's parameter, gradient and AdamW bytes equal to the dry run's per-device bytes
+              on the (1, 2) mesh, its peak beside one process's, ms a step,
+              gloo's all-reduce and all-gather calls and host ms, and the flash
+              launches of each step at the rank's heads (whisper 144, deepseek-v3
+              7; the kernel is held at those rank-local shapes in `kernels`)
 Then the `kernels` line and, last, the `ok` line.
 """
 
@@ -218,8 +239,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import ops as port_ops  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
-    deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b, whisper_medium, xlstm_125m,
-    zamba2_2_7b)
+    ShapeConfig, deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b, whisper_medium,
+    xlstm_125m, zamba2_2_7b)
 from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -236,12 +257,12 @@ from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noq
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
-    init_distributed, make_host_mesh, make_mesh, set_mesh)
+    Mesh, init_distributed, make_host_mesh, make_mesh, set_mesh)
 from repro_torch.models import (  # noqa: E402
     attention as attn, base, encdec, hybrid, moe, registry, transformer, xlstm)
 from repro_torch.serving import serve_step  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.parallel import compression, sharding  # noqa: E402
+from repro_torch.parallel import collectives, compression, sharding  # noqa: E402
 from repro_torch.training import optim, train_step  # noqa: E402
 from repro_torch.ssdsim import engine as ssd_engine  # noqa: E402
 from repro_torch.ssdsim import geometry as ssd_geometry  # noqa: E402
@@ -317,6 +338,14 @@ V_DIM = dict(HEAD_DIMS)  # the v head dim the kernel pairs with each q and k hea
 FLASH_TP = {"tp2": (2, PROMPT, PROMPT, 16, 2, 64, True), "tp4": (2, PROMPT, PROMPT, 8, 1, 64, True),
             "tp8": (2, PROMPT, PROMPT, 4, 1, 64, True),
             "tp_expanded_kv": (2, PROMPT, PROMPT, 2, 2, 64, True)}
+# the rank-local attention of (g2) in the parallel phase, on one rank of a model
+# axis of 2: whisper-medium's encoder, decoder and cross-attention at 8 of its 16
+# heads (batch 2, 1500 frames, 416 tokens), and deepseek-v3-671b's MLA at 64 of
+# its 128 heads (q and k 192 wide over v 128 wide; batch 1 x 2048)
+FLASH_TP_FAMILIES = {"tp2_whisper_enc": (2, 1500, 1500, 8, 8, 64, False),
+                     "tp2_whisper_dec": (2, 416, 416, 8, 8, 64, True),
+                     "tp2_whisper_cross": (2, 416, 1500, 8, 8, 64, False),
+                     "tp2_mla": (1, PROMPT, PROMPT, 64, 64, 192, True)}
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
 # not multiples of the kernel's 64-row tiles, with GQA and no causal mask
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
@@ -607,7 +636,8 @@ def check_flash(dev, full_only):
     cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
              ("granite", FLASH_GRANITE, torch.bfloat16), ("mla", FLASH_MLA, torch.float32),
              ("mla", FLASH_MLA, torch.bfloat16)]
-    cases += [(label, shape, dt) for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP.items())
+    cases += [(label, shape, dt) for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP.items(),
+                                                      *FLASH_TP_FAMILIES.items())
               for dt in (torch.float32, torch.bfloat16)]
     if not full_only:
         cases += [(f"test{i}", shape, dt) for i, shape in enumerate(FLASH_SHAPES)
@@ -638,7 +668,7 @@ def check_flash(dev, full_only):
             atols[name] = atol
         dname = str(dt).replace("torch.", "")
         worst[dname] = max(worst.get(dname, 0.0), *errs.values())
-        if label in ("granite", "mla", *WHISPER_FLASH):
+        if label in ("granite", "mla", *WHISPER_FLASH, *FLASH_TP_FAMILIES):
             worst[f"{label}_{dname}"] = max(errs.values())
         emit("kernels", kernel="flash_attention_fwd", shape=label,
              b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
@@ -1224,7 +1254,7 @@ def phase_times(dev):
                                       library_ms=lib_ms)
     out["flash_granite"] = time_flash_bf16(rng, floor_ms, FLASH_GRANITE)
     out["flash_mla"] = time_flash_bf16(rng, floor_ms, FLASH_MLA)
-    for label, shape in WHISPER_FLASH.items():
+    for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP_FAMILIES.items()):
         out[f"flash_{label}"] = time_flash_bf16(rng, floor_ms, shape)
     return out
 
@@ -2657,6 +2687,33 @@ def parallel_train(dev, cfg, mesh=None):
     return params, hist, records, n
 
 
+def parallel_data_mean(dev, cfg, params, mesh, n_iter=5):
+    """(b) The data-parallel mean that ``make_train_step`` makes over data
+    axes of more than one rank (one data rank skips it), here over the
+    one-rank NCCL group: ``collectives.mean_over`` on the loss and gradients
+    of one step at ``params`` (the last batch of (b)'s run), which must come
+    back bit for bit in their dtypes; ``n_iter`` calls, each timed between
+    two synchronizes (the first sets up NCCL's communicator)."""
+    api = registry.get_api(cfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(PARALLEL_STEPS - 1).items()}
+    loss, grads = train_step.value_and_grad(api.loss_fn, params, batch, api.idle_params)
+    tensors = [loss, *base.tree_leaves(grads)]
+    ms = []
+    for _ in range(n_iter):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = collectives.mean_over(tensors, mesh.data_group)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(out, tensors)),
+              "(b) mean_over on the one-rank group changed a gradient or the loss")
+        del out
+    return dict(tensors=len(tensors), bytes=sum(t.numel() * t.element_size() for t in tensors),
+                ms=ms, bit_equal=True)
+
+
 def moe_fwd_bwd(fn, p, x, dy, daux):
     """y, aux and the gradients (x's, then p's leaves) of
     ``<y, dy> + daux * aux`` for ``fn(p, x) -> (y, aux)``."""
@@ -2821,14 +2878,22 @@ TP_WORLD = 2
 TP_CMP = dict(n_layers=2, steps=2, batch=2, seq=256, lr=1e-3)  # (f1): f32, 2 layers
 TP_STEPS, TP_BATCH = 3, 2  # (f2): full depth in bf16, 3 steps of 2 x 2048 tokens
 TP_TIMEOUT_S = 300
-# (f1)'s tolerances, the CPU tests' for f32 steps taken two ways: losses rtol
-# 1e-5; parameters rtol 1e-5 plus atol 1e-4, a tenth of one AdamW step at lr
-# 1e-3, as tests/test_torch_train.py holds parameters after steps at this lr
-# (AdamW divides each entry by its own root mean square plus eps, so an entry
-# whose gradient nearly cancels steps by an amount that the sums' order moves;
-# on an H100 one entry of 524,288 in layer 0's wk came out 1.3e-5 apart).
+# (f1)'s and (g1)'s tolerances, the CPU tests' for f32 steps taken two ways:
+# losses rtol 1e-5; each step's grad norm rtol 1e-5, which sees a gradient of
+# the right sign and the wrong size (a partial cotangent not summed over the
+# ranks), where AdamW's parameters do not (its first steps move each entry by
+# about lr * sign(g)); parameters rtol 1e-5 plus atol 1e-4, as
+# tests/test_torch_train.py holds parameters after steps at lr 1e-3 (AdamW
+# divides each entry by its own root mean square plus eps, so an entry whose
+# gradient nearly cancels steps by an amount that the sums' order moves; on an
+# H100 one entry of 524,288 in layer 0's wk came out 1.3e-5 apart). (f1) and
+# (g1) take launch.train.run's warmup of 20, steps of 5e-5 and 1e-4, so 1e-4
+# is about one step: an entry whose gradient cancels to ~eps steps apart by
+# a share of a step at any lr (at the full lr, deepseek-v3's embed.table had
+# 340 entries of 463,339,520 up to 6.7e-4 apart after steps of 1e-3 and
+# 9.7e-4), and the parameters cannot be held to a tenth of one.
 # (f2): the losses rtol 2e-3, as the CPU tests hold bf16 losses
-TP_TOL = dict(loss=1e-5, params_rtol=1e-5, params_atol=1e-4, bf16_loss=2e-3)
+TP_TOL = dict(loss=1e-5, grad_norm=1e-5, params_rtol=1e-5, params_atol=1e-4, bf16_loss=2e-3)
 
 
 @contextlib.contextmanager
@@ -2843,27 +2908,57 @@ def f32_params():
 
 
 @contextlib.contextmanager
-def timed_all_reduces(totals):
-    """While active, each ``torch.distributed.all_reduce`` runs between two
-    synchronizes, and its host ms and count are added to ``totals`` (``ms``,
-    ``calls``). With gloo on CUDA tensors the call copies them to the host,
-    reduces there and copies back."""
-    real = dist.all_reduce
+def timed_collectives(totals):
+    """While active, each ``torch.distributed.all_reduce`` and ``all_gather``
+    runs between two synchronizes, and its host ms and count are added to
+    ``totals[name]`` (``ms``, ``calls``). With gloo on CUDA tensors the call
+    copies them to the host, reduces or gathers there and copies back."""
+    reals = {name: getattr(dist, name) for name in ("all_reduce", "all_gather")}
 
-    def timed(*a, **kw):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*a, **kw)
-        torch.cuda.synchronize()
-        totals["ms"] = totals.get("ms", 0.0) + (time.perf_counter() - t0) * 1e3
-        totals["calls"] = totals.get("calls", 0) + 1
-        return out
+    def timing(name, real):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            tot = totals.setdefault(name, dict(ms=0.0, calls=0))
+            tot["ms"] += (time.perf_counter() - t0) * 1e3
+            tot["calls"] += 1
+            return out
+        return timed
 
-    dist.all_reduce = timed
+    for name, real in reals.items():
+        setattr(dist, name, timing(name, real))
     try:
         yield
     finally:
-        dist.all_reduce = real
+        for name, real in reals.items():
+            setattr(dist, name, real)
+
+
+@contextlib.contextmanager
+def sized_steps(bytes_):
+    """While active, the first step of a ``train_step.make_train_step`` step
+    function records in ``bytes_`` the bytes of the parameters, of their
+    gradients (the parameters' shapes and dtypes) and of the AdamW state it
+    receives."""
+    make = train_step.make_train_step
+
+    def sizing(*a, **kw):
+        step = make(*a, **kw)
+
+        def first(params, opt_state, batch):
+            if not bytes_:
+                bytes_.update(params=dryrun.tree_bytes(params), grads=dryrun.tree_bytes(params),
+                              adamw_state=dryrun.tree_bytes(opt_state))
+            return step(params, opt_state, batch)
+        return first
+
+    train_step.make_train_step = sizing
+    try:
+        yield
+    finally:
+        train_step.make_train_step = make
 
 
 def tp_runs(dev, cfg, mesh=None, out=None):
@@ -2877,7 +2972,8 @@ def tp_runs(dev, cfg, mesh=None, out=None):
     (rank 0) or returned."""
     c = TP_CMP
     cmp_cfg = cfg.with_(n_layers=c["n_layers"], dtype=torch.float32)
-    with f32_params():
+    records1 = []
+    with f32_params(), recorded_steps(records1):
         params, hist1 = train.run(cfg.arch, cfg=cmp_cfg, steps=c["steps"], batch=c["batch"],
                                   seq=c["seq"], lr=c["lr"], log_every=1, mesh=mesh, device=dev)
     params = {k: v.cpu() for k, v in base.tree_paths(
@@ -2885,34 +2981,19 @@ def tp_runs(dev, cfg, mesh=None, out=None):
     if out is not None and dist.get_rank() == 0:
         torch.save(params, out)
     records, bytes_, coll = [], {}, {}
-    make = train_step.make_train_step
-
-    def sizing(*a, **kw):
-        step = make(*a, **kw)
-
-        def first(params, opt_state, batch):
-            if not bytes_:  # the gradients take the parameters' shapes and dtypes
-                bytes_.update(params=dryrun.tree_bytes(params), grads=dryrun.tree_bytes(params),
-                              adamw_state=dryrun.tree_bytes(opt_state))
-            return step(params, opt_state, batch)
-        return first
-
-    train_step.make_train_step = sizing
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    try:
-        with recorded_steps(records), (timed_all_reduces(coll) if mesh is not None
-                                       else contextlib.nullcontext()):
-            reset_counts()
-            _, hist2 = train.run(cfg.arch, smoke=False, steps=TP_STEPS, batch=TP_BATCH,
-                                 seq=TRAIN_SEQ, log_every=1, mesh=mesh, device=dev)
-            torch.cuda.synchronize()
-            n = counts()
-    finally:
-        train_step.make_train_step = make
+    with sized_steps(bytes_), recorded_steps(records), (
+            timed_collectives(coll) if mesh is not None else contextlib.nullcontext()):
+        reset_counts()
+        _, hist2 = train.run(cfg.arch, smoke=False, steps=TP_STEPS, batch=TP_BATCH,
+                             seq=TRAIN_SEQ, log_every=1, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        n = counts()
     step_ms = [r["ms"] for r in records]
-    return dict(f1_hist=hist1, f1_params=None if out is not None else params,
+    return dict(f1_hist=hist1, f1_grad_norms=[r["grad_norm"] for r in records1],
+                f1_params=None if out is not None else params,
                 f2=dict(losses=[l for _, l in hist2], step_ms=step_ms,
                         flash_launches_per_step=[r["flash_launches"] for r in records],
                         launches=n, bytes=bytes_, max_memory_allocated=torch.cuda.max_memory_allocated(),
@@ -2935,6 +3016,22 @@ def _tp_rank(rank, world, rendezvous, out_dir):
         dist.destroy_process_group()
 
 
+def spawn_ranks(fn, args, timeout_s, label):
+    """``fn(rank, *args)`` in TP_WORLD processes on the card; raises if one
+    fails or they outlast ``timeout_s``. Returns the wall seconds."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(fn, args=args, nprocs=TP_WORLD, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
+        if time.monotonic() >= deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise RuntimeError(f"chip_smoke: {label} did not end within {timeout_s} s")
+    return time.perf_counter() - t0
+
+
 def parallel_tp(dev, cfg, smi):
     """(f) tinyllama-1.1b's training step tensor-parallel over two processes
     on the card against one process: (f1) in f32, the losses and the final
@@ -2942,23 +3039,12 @@ def parallel_tp(dev, cfg, smi):
     losses within 2e-3, 2 x n_layers flash launches a step on each rank at
     its heads (16 over 2 KV heads), each rank's bytes and peak beside the one
     process's. Returns the flash launches of (f2) over both ranks."""
-    import torch.multiprocessing as mp
-
     one = tp_runs(dev, cfg)
     torch.cuda.empty_cache()
     tp_dir = PARALLEL_DIR / "tp"
     shutil.rmtree(tp_dir, ignore_errors=True)
     tp_dir.mkdir(parents=True)
-    t0 = time.perf_counter()
-    ctx = mp.start_processes(_tp_rank, args=(TP_WORLD, tp_dir / "rendezvous", tp_dir),
-                             nprocs=TP_WORLD, join=False, start_method="spawn")
-    deadline = time.monotonic() + TP_TIMEOUT_S
-    while not ctx.join(timeout=max(deadline - time.monotonic(), 0)):
-        if time.monotonic() >= deadline:
-            for proc in ctx.processes:
-                proc.kill()
-            raise RuntimeError(f"chip_smoke: (f) did not end within {TP_TIMEOUT_S} s")
-    wall_s = time.perf_counter() - t0
+    wall_s = spawn_ranks(_tp_rank, (TP_WORLD, tp_dir / "rendezvous", tp_dir), TP_TIMEOUT_S, "(f)")
     ranks = [torch.load(tp_dir / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
     got = torch.load(tp_dir / "f1_params.pt")
     shutil.rmtree(tp_dir, ignore_errors=True)
@@ -2969,6 +3055,11 @@ def parallel_tp(dev, cfg, smi):
     loss_err = max(abs(a - b) / abs(b) for ls in losses for a, (_, b) in zip(ls, one["f1_hist"]))
     check(all(ls == losses[0] for ls in losses) and loss_err <= t["loss"],
           f"(f1) losses {losses} vs one process {one['f1_hist']}")
+    norm_err = max(abs(a - b) / abs(b) for r in ranks
+                   for a, b in zip(r["f1_grad_norms"], one["f1_grad_norms"]))
+    check(len(ranks[0]["f1_grad_norms"]) == TP_CMP["steps"] and norm_err <= t["grad_norm"],
+          f"(f1) grad norms {[r['f1_grad_norms'] for r in ranks]} vs one process "
+          f"{one['f1_grad_norms']}")
     check(got.keys() == want.keys(), "(f1) the gathered parameters' leaves differ")
     worst = {}
     for k, w in want.items():
@@ -2977,6 +3068,7 @@ def parallel_tp(dev, cfg, smi):
         worst[k] = float((got[k] - w).abs().max())
     f1 = dict(n_layers=TP_CMP["n_layers"], steps=TP_CMP["steps"], batch=TP_CMP["batch"],
               seq=TP_CMP["seq"], dtype="float32", loss_max_rel_err=loss_err,
+              grad_norm_max_rel_err=norm_err,
               params_max_abs_err=max(worst.values()),
               worst_leaf=max(worst, key=worst.get), tol=t)
 
@@ -3001,6 +3093,7 @@ def parallel_tp(dev, cfg, smi):
     for i, r in enumerate(ranks):
         f2 = r["f2"]
         ms = after_first(f2["step_ms"])
+        ar = f2["all_reduces"]["all_reduce"]
         rank_lines.append(dict(
             rank=i, losses=f2["losses"], loss_max_rel_err=f2["loss_max_rel_err"],
             step_ms=f2["step_ms"], ms_per_step_after_first=ms,
@@ -3009,8 +3102,8 @@ def parallel_tp(dev, cfg, smi):
                 k: v / o2["bytes"][k] for k, v in f2["bytes"].items()},
             max_memory_allocated=f2["max_memory_allocated"],
             peak_over_one_process=f2["max_memory_allocated"] / o2["max_memory_allocated"],
-            all_reduce_calls=f2["all_reduces"]["calls"], all_reduce_ms=f2["all_reduces"]["ms"],
-            all_reduce_share_of_steps=f2["all_reduces"]["ms"] / sum(f2["step_ms"])))
+            all_reduce_calls=ar["calls"], all_reduce_ms=ar["ms"],
+            all_reduce_share_of_steps=ar["ms"] / sum(f2["step_ms"])))
     line = dict(
         backend=ranks[0]["backend"], world=TP_WORLD, mesh=dict(data=1, model=TP_WORLD),
         device="one card, both ranks on cuda:0", spawn_to_end_s=wall_s, f1_f32=f1,
@@ -3025,6 +3118,260 @@ def parallel_tp(dev, cfg, smi):
                      note="two ranks share one card and gloo copies every all-reduce through "
                           "the host: these times are not tensor-parallel speed"))
     return line, sum(r["f2"]["launches"]["flash_attention_fwd"] for r in ranks)
+
+
+# (g): tensor parallelism of the other families' training steps on the same
+# (1, 2) mesh, two processes on the card over gloo as in (f): whisper-medium
+# (encdec), deepseek-v3-671b (MLA, with its dense-first layers and MTP),
+# xlstm-125m (ssm) and zamba2-2.7b (hybrid). Per arch: the config, (g1)'s cut
+# (f32, 2 steps against one process) and its batch x tokens, (g2)'s cut (bf16,
+# full widths) and its batch x tokens. deepseek-v3's 256-expert MoE layer does
+# not fit beside AdamW's moments: (g2) runs its three dense layers and MTP
+# (3.36 B parameters), (g1) one dense layer and MTP; the MoE layers' placement
+# with MLA is held on the CPU (tests/test_torch_tensor_parallel_families.py).
+# The recurrent families run no remat: (g2) cuts zamba2 to 9 layers (one
+# application of the shared block) and both to short sequences, which the dry
+# run puts at 14.5 GB (xlstm, 1 x 256) and 14.0 GB (zamba2, 1 x 512) on one
+# card; their per-token recurrences are host loops.
+TPF = {
+    "whisper-medium": (whisper_medium.CONFIG, dict(n_layers=2, n_enc_layers=2), (2, 64), {},
+                       (2, 416)),
+    "deepseek-v3-671b": (deepseek_v3_671b.CONFIG, dict(n_layers=1, first_k_dense=1), (2, 256),
+                         dict(n_layers=3, first_k_dense=3), (1, PROMPT)),
+    "xlstm-125m": (xlstm_125m.CONFIG, dict(n_layers=4), (2, 64), {}, (1, 256)),
+    "zamba2-2.7b": (zamba2_2_7b.CONFIG, dict(n_layers=10), (2, 64), dict(n_layers=9), (1, 512)),
+}
+TPF_STEPS = 2  # steps of each (g1) and (g2) run
+TPF_TIMEOUT_S = 600
+TPF_LR = 1e-3  # launch.train.run's schedule at this lr: warmup 20, cosine over the run
+
+
+def tpf_cfgs(arch):
+    """(g1)'s config (f32) and (g2)'s (the published dtype, bf16) of ``arch``."""
+    cfg, cut1, _, cut2, _ = TPF[arch]
+    return cfg.with_(**cut1, dtype=torch.float32), cfg.with_(**cut2)
+
+
+def tpf_batches(cfg, shape, seed):
+    """TPF_STEPS batches of ``shape`` (batch, tokens), drawn by numpy as the
+    families phase draws them (whisper's 1500 frames too), on the CPU."""
+    rng = np.random.default_rng(seed)
+    return [family_batch(cfg, rng, *shape, labels=True) for _ in range(TPF_STEPS)]
+
+
+def train_flash_per_step(cfg):
+    """Flash launches of one training step: each attention layer of the
+    forward (``flash_per_forward``), again in the backward with remat, and
+    MTP's block once (it runs without remat)."""
+    layers = flash_per_forward(cfg.with_(mtp_depth=0))
+    return layers * (2 if cfg.remat else 1) + (cfg.mtp_depth if layers else 0)
+
+
+def tpf_by_hand(dev, cfg, batches, mesh):
+    """The steps of ``launch.train.run`` on ``batches``: the parameters drawn
+    from a generator seeded 0 in the specs' dtypes, placed by the rules
+    (``sharding.shard_params``), AdamW under run's schedule,
+    ``make_train_step`` on ``mesh`` under ``set_mesh``. Returns the final
+    parameters."""
+    params = base.materialize(registry.get_api(cfg).specs(),
+                              torch.Generator(device=dev).manual_seed(0), device=dev)
+    params = sharding.shard_params(params, cfg, mesh)
+    state = optim.init(params)
+    step = train_step.make_train_step(
+        cfg, optim.AdamWConfig(lr=TPF_LR, warmup=20, total_steps=len(batches)), mesh=mesh)
+    with set_mesh(mesh):
+        for b in batches:
+            params, state, _ = step(params, state, {k: v.to(dev) for k, v in b.items()})
+    return params
+
+
+def tpf_steps(dev, cfg, shape, seed, mesh=None):
+    """TPF_STEPS steps of ``launch.train.run(cfg=, mesh=)`` (``mesh`` None:
+    one process) on batches of ``shape`` (batch, tokens), an f32 config's
+    parameters in f32 (``f32_params``); but whisper's batches carry the
+    frames that run's synthetic data does not, so its steps are built as
+    run builds them (``tpf_by_hand``) on ``tpf_batches``. Each step is timed
+    between two synchronizes with its flash launches, loss and grad norm,
+    and on a mesh the host ms inside gloo's all-reduces and all-gathers.
+    Returns (params, a record of the run)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    records, bytes_, coll = [], {}, {}
+    with (f32_params() if cfg.dtype == torch.float32 else contextlib.nullcontext()), \
+            sized_steps(bytes_), recorded_steps(records), \
+            (timed_collectives(coll) if mesh is not None else contextlib.nullcontext()):
+        reset_counts()
+        if cfg.family == "encdec":
+            params = tpf_by_hand(dev, cfg, tpf_batches(cfg, shape, seed), mesh)
+        else:
+            params, _ = train.run(cfg.arch, cfg=cfg, steps=TPF_STEPS, batch=shape[0],
+                                  seq=shape[1], lr=TPF_LR, log_every=1, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        n = counts()
+    return params, dict(losses=[r["loss"] for r in records],
+                        grad_norms=[r["grad_norm"] for r in records],
+                        step_ms=[r["ms"] for r in records],
+                        flash_launches_per_step=[r["flash_launches"] for r in records],
+                        launches=n, bytes=bytes_,
+                        max_memory_allocated=torch.cuda.max_memory_allocated(),
+                        collectives=coll)
+
+
+def tpf_one_process(dev, plan_dir):
+    """(g1) and (g2) of every TPF arch on one process: (g1)'s final
+    parameters saved to ``plan_dir`` for the ranks to compare with, and each
+    run's record."""
+    out = {}
+    for i, arch in enumerate(TPF):
+        c1, c2 = tpf_cfgs(arch)
+        params, g1 = tpf_steps(dev, c1, TPF[arch][2], 40 + i)
+        torch.save({k: v.cpu() for k, v in base.tree_paths(params).items()},
+                   plan_dir / f"g1_{i}.pt")
+        del params
+        params, g2 = tpf_steps(dev, c2, TPF[arch][4], 50 + i)
+        del params
+        out[arch] = dict(g1=g1, g2=g2)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpf_rank(rank, world, rendezvous, plan_dir):
+    """One rank of (g), in a process of its own on the card: a gloo group
+    from a file:// rendezvous, the (1, world) mesh over it; per TPF arch,
+    (g1) with this rank's blocks of the final parameters held against the
+    one process's (each leaf's block along its split dim, a whole leaf
+    whole: together the gathered parameters), then (g2)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", init_method=f"file://{rendezvous}", rank=rank,
+                           world_size=world, backend="gloo")
+    try:
+        mesh = make_mesh((1, world), ("data", "model"), dev)
+        r, t = mesh.axis_index("model"), TP_TOL
+        out = {}
+        for i, arch in enumerate(TPF):
+            c1, c2 = tpf_cfgs(arch)
+            params, g1 = tpf_steps(dev, c1, TPF[arch][2], 40 + i, mesh)
+            want = torch.load(plan_dir / f"g1_{i}.pt", mmap=True)
+            worst = {}
+            dims = sharding.split_dims(c1, mesh)
+            for (k, p), d in zip(base.tree_paths(params).items(), dims):
+                w = (want[k] if d is None else want[k].chunk(world, d)[r]).to(dev)
+                torch.testing.assert_close(p, w, rtol=t["params_rtol"], atol=t["params_atol"],
+                                           msg=lambda m: f"(g1) {arch} {k}: {m}")
+                worst[k] = float((p - w).abs().max())
+            del params, want, p, w
+            g1.update(params_max_abs_err=max(worst.values()),
+                      worst_leaf=max(worst, key=worst.get), n_split=sum(d is not None
+                                                                        for d in dims))
+            params, g2 = tpf_steps(dev, c2, TPF[arch][4], 50 + i, mesh)
+            del params  # before the next arch's runs, whose peaks must not hold it
+            out[arch] = dict(g1=g1, g2=g2)
+        out["backend"] = dist.get_backend()
+        torch.save(out, plan_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_tp_families(dev, smi):
+    """(g) The training steps of whisper-medium, deepseek-v3-671b, xlstm-125m
+    and zamba2-2.7b tensor-parallel over two processes on the card against
+    one process, which runs first, each through ``launch.train.run(mesh=)``
+    (whisper by hand): (g1) in f32 at cut depth, the losses, each step's
+    grad norm and the final parameters within TP_TOL; (g2) in bf16 at full
+    widths, the losses within 2e-3, each rank's parameter, gradient and AdamW bytes equal
+    to the dry run's per-device bytes on the (1, 2) mesh, its peak beside one
+    process's, ms a step, gloo's all-reduces and all-gathers, and the flash
+    launches of each step at the rank's heads. Returns the line and the flash
+    launches of both ranks' runs."""
+    plan_dir = PARALLEL_DIR / "tp_families"
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    plan_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    one = tpf_one_process(dev, plan_dir)
+    one_s = time.perf_counter() - t0
+    wall_s = spawn_ranks(_tpf_rank, (TP_WORLD, plan_dir / "rendezvous", plan_dir), TPF_TIMEOUT_S,
+                         "(g)")
+    ranks = [torch.load(plan_dir / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    shutil.rmtree(plan_dir, ignore_errors=True)
+    t, mesh = TP_TOL, Mesh(("data", "model"), (1, TP_WORLD))
+    lines, launches = {}, 0
+    for arch in TPF:
+        c1, c2 = tpf_cfgs(arch)
+        o1, o2 = one[arch]["g1"], one[arch]["g2"]
+        # (g1): f32, the losses against one process (the parameters were held in the ranks)
+        rs1 = [r[arch]["g1"] for r in ranks]
+        err1 = max(abs(a - b) / abs(b) for r in rs1 for a, b in zip(r["losses"], o1["losses"]))
+        check(all(r["losses"] == rs1[0]["losses"] for r in rs1) and err1 <= t["loss"],
+              f"(g1) {arch} losses {[r['losses'] for r in rs1]} vs one process {o1['losses']}")
+        norm1 = max(abs(a - b) / abs(b) for r in rs1
+                    for a, b in zip(r["grad_norms"], o1["grad_norms"]))
+        check(len(o1["grad_norms"]) == TPF_STEPS and norm1 <= t["grad_norm"],
+              f"(g1) {arch} grad norms {[r['grad_norms'] for r in rs1]} vs one process "
+              f"{o1['grad_norms']}")
+        # (g2): bf16, full widths
+        rec = dryrun.dry_cell(c2, ShapeConfig("g2", TPF[arch][4][1], TPF[arch][4][0], "train"),
+                              mesh, "1x2", counts=dict(flops=0, peak_bytes=0, count_s=0.0))
+        per_dev = rec["per_device_bytes"]
+        want_flash = train_flash_per_step(c2)
+        rank_lines = []
+        for i, r in enumerate(ranks):
+            g1, g2 = r[arch]["g1"], r[arch]["g2"]
+            check(g1["flash_launches_per_step"] == [train_flash_per_step(c1)] * TPF_STEPS,
+                  f"(g1) {arch} rank {i} flash launches {g1['flash_launches_per_step']}")
+            check(all(math.isfinite(x) for x in g2["losses"]), f"(g2) {arch} rank {i}: {g2}")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(g2["losses"], o2["losses"]))
+            check(rel <= t["bf16_loss"],
+                  f"(g2) {arch} rank {i} losses {g2['losses']} vs {o2['losses']}")
+            check(g2["bytes"]["params"] == g2["bytes"]["grads"] == per_dev["params"]
+                  and g2["bytes"]["adamw_state"] == per_dev["opt_state"],
+                  f"(g2) {arch} rank {i} bytes {g2['bytes']} vs the dry run's {per_dev}")
+            check(g2["flash_launches_per_step"] == [want_flash] * TPF_STEPS
+                  and g2["launches"]["flash_attention_fwd"] == want_flash * TPF_STEPS,
+                  f"(g2) {arch} rank {i} flash launches {g2['flash_launches_per_step']}, "
+                  f"want {want_flash} a step")
+            launches += (g1["launches"]["flash_attention_fwd"]
+                         + g2["launches"]["flash_attention_fwd"])
+            coll = {name: dict(calls=c["calls"], ms=c["ms"], share_of_steps=c["ms"] / sum(
+                g2["step_ms"])) for name, c in g2["collectives"].items()}
+            rank_lines.append(dict(
+                rank=i, g1_losses=g1["losses"], g1_params_max_abs_err=g1["params_max_abs_err"],
+                g1_worst_leaf=g1["worst_leaf"], g1_n_split=g1["n_split"],
+                losses=g2["losses"], loss_max_rel_err=rel, step_ms=g2["step_ms"],
+                flash_launches_per_step=g2["flash_launches_per_step"], launches=g2["launches"],
+                bytes=g2["bytes"], bytes_over_one_process={
+                    k: v / o2["bytes"][k] for k, v in g2["bytes"].items()},
+                max_memory_allocated=g2["max_memory_allocated"],
+                peak_over_one_process=g2["max_memory_allocated"] / o2["max_memory_allocated"],
+                collectives=coll))
+        check(ranks[0][arch]["g2"]["losses"] == ranks[1][arch]["g2"]["losses"],
+              f"(g2) {arch}: the ranks' losses differ")
+        lines[arch] = dict(
+            g1_f32=dict(cut={k: getattr(c1, k) for k in TPF[arch][1]},
+                        batch_tokens=list(TPF[arch][2]), steps=TPF_STEPS,
+                        entry="by hand" if c1.family == "encdec" else "launch.train.run",
+                        one_process_losses=o1["losses"], loss_max_rel_err=err1,
+                        one_process_grad_norms=o1["grad_norms"], grad_norm_max_rel_err=norm1,
+                        tol=t,
+                        flash_launches_per_step=train_flash_per_step(c1)),
+            g2_bf16=dict(cut={k: getattr(c2, k) for k in TPF[arch][3]},
+                         n_layers=c2.n_layers, n_enc_layers=c2.n_enc_layers,
+                         batch_tokens=list(TPF[arch][4]), steps=TPF_STEPS, remat=c2.remat,
+                         entry="by hand" if c2.family == "encdec" else "launch.train.run",
+                         heads_per_rank=c2.n_heads // TP_WORLD,
+                         dry_run_per_device_bytes=per_dev,
+                         one_process=dict(losses=o2["losses"], step_ms=o2["step_ms"],
+                                          bytes=o2["bytes"],
+                                          max_memory_allocated=o2["max_memory_allocated"],
+                                          flash_launches_per_step=o2["flash_launches_per_step"]),
+                         ranks=rank_lines))
+    line = dict(backend=ranks[0]["backend"], world=TP_WORLD, mesh=dict(data=1, model=TP_WORLD),
+                device="one card, both ranks on cuda:0", one_process_s=one_s,
+                spawn_to_end_s=wall_s, archs=lines,
+                note="two ranks share one card and gloo copies every collective through "
+                     "the host: these times are not tensor-parallel speed")
+    return line, launches
 
 
 def phase_parallel(dev, cfg, smi):
@@ -3051,6 +3398,7 @@ def phase_parallel(dev, cfg, smi):
               and n["flash_attention_fwd"] == per_step * PARALLEL_STEPS,
               f"(b) flash launches {[r['flash_launches'] for r in r_mesh]}, total {n}")
         del p_one
+        data_mean = parallel_data_mean(dev, cfg, p_mesh, mesh)
         train_line = dict(arch=cfg.arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=PARALLEL_STEPS,
                           dtype=str(cfg.dtype).replace("torch.", ""), remat=cfg.remat,
                           losses=[l for _, l in h_mesh], bit_equal=True,
@@ -3059,7 +3407,8 @@ def phase_parallel(dev, cfg, smi):
                               name: sum(r["ms"] for r in rs[1:]) / (len(rs) - 1)
                               for name, rs in (("mesh_none", r_one), ("mesh_1x1", r_mesh))},
                           first_step_ms={"mesh_none": r_one[0]["ms"],
-                                         "mesh_1x1": r_mesh[0]["ms"]})
+                                         "mesh_1x1": r_mesh[0]["ms"]},
+                          data_mean_skipped_in_step=True, data_mean=data_mean)
         wall = {"b": time.perf_counter() - t_phase}
         t0 = time.perf_counter()
         compressed = parallel_compressed(dev, p_mesh, cfg, mesh)
@@ -3074,12 +3423,14 @@ def phase_parallel(dev, cfg, smi):
         dist.destroy_process_group()
     t0 = time.perf_counter()
     tp_line, tp_launches = parallel_tp(dev, cfg, smi)
-    wall["f"] = time.perf_counter() - t0
+    wall["f"], t0 = time.perf_counter() - t0, time.perf_counter()
+    tpf_line, tpf_launches = parallel_tp_families(dev, smi)
+    wall["g"] = time.perf_counter() - t0
     emit("parallel", nvidia_smi=smi, backend=backend, world=1, mesh=dict(data=1, model=1),
          group_start_s=start_s, b_train=train_line, c_moe_apply_ep=ep,
          d_compressed_allreduce=compressed, e_sweep_two_entries=sweep_line, f_tp=tp_line,
-         wall_s=dict(wall, phase=time.perf_counter() - t_phase))
-    return n, tp_launches
+         g_tp_families=tpf_line, wall_s=dict(wall, phase=time.perf_counter() - t_phase))
+    return n, tp_launches, tpf_launches
 
 
 def _mean_row(rows):
@@ -3124,20 +3475,21 @@ def main():
         dryrun_launches = phase_dryrun(dev, smi)
         _, ssd_states = phase_ssd(dev)
         phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
-        parallel_launches, tp_launches = phase_parallel(dev, cfg, smi)
+        parallel_launches, tp_launches, tpf_launches = phase_parallel(dev, cfg, smi)
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
         # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
         # and training step (f32, 2 + 2 layers), the dry run's cells (bf16),
         # tinyllama's training on the one-rank mesh (bf16), and on the (1, 2)
-        # mesh, tensor-parallel, both ranks' launches (bf16)
+        # mesh, tensor-parallel, both ranks' launches (bf16); and whisper's and
+        # deepseek-v3's training there, both ranks' launches (f32 and bf16)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
                    **moe_launches, "mla_prefill": mla_launches,
                    "whisper_prefill": family_launches["whisper-medium"],
                    "whisper_train": family_launches["whisper_train"],
                    "dryrun_cells": dryrun_launches["flash_attention_fwd"],
                    "parallel_train": parallel_launches["flash_attention_fwd"],
-                   "parallel_tp": tp_launches}
+                   "parallel_tp": tp_launches, "parallel_tp_families": tpf_launches}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
@@ -3151,7 +3503,7 @@ def main():
                 autograd_entry_max_abs_err={dt: r["max_abs_err"] for dt, r in mla_entry.items()}),
             **{f"{label}_bf16": dict(**times[f"flash_{label}"], max_abs_err={
                 dt: flash_err[f"{label}_{dt}"] for dt in ("float32", "bfloat16")})
-               for label in WHISPER_FLASH},
+               for label in (*WHISPER_FLASH, *FLASH_TP_FAMILIES)},
             whisper_autograd_entry_max_abs_err={
                 label: {dt: r["max_abs_err"] for dt, r in e.items()}
                 for label, e in whisper_entry.items()})}

@@ -66,18 +66,16 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     the loss over them in one all-reduce (``train_step.make_train_step``);
     ``hist`` holds the global mean loss.
 
-    A model axis above 1 places the parameters by the sharding rules, as the
-    reference's ``jax.device_put`` of ``param_shardings`` does
-    (``sharding.shard_params``): for the ``dense`` and ``vlm`` families and
-    ``moe`` without MLA, each rank keeps its block of every leaf the rules
-    split (attention heads, MLP width, vocabulary, experts or their width),
-    with its gradients and AdamW moments, and the steps, under
-    ``set_mesh``, are tensor-parallel (``parallel/tensor.py``); the MoE
-    layers take ``moe.moe_apply_ep`` where ``moe._moe_ffn`` picks it. The
-    families outside the placement (MLA, ``encdec``, ``ssm``, ``hybrid``)
-    keep every parameter whole, and each model rank computes them alike
-    (an MLA model's MoE layers still take ``moe_apply_ep`` where it is
-    picked, slicing the whole experts). The returned
+    A model axis above 1 places the parameters of every family by the
+    sharding rules, as the reference's ``jax.device_put`` of
+    ``param_shardings`` does (``sharding.shard_params``): each rank keeps its
+    block of every leaf the rules split (attention heads, MLA's heads, MLP
+    width, vocabulary, experts or their width, a recurrent block's
+    features), with its gradients and AdamW moments, and the steps, under
+    ``set_mesh``, are tensor-parallel (``parallel/tensor.py``; the
+    recurrent blocks gather the leaves whose blocks are no unit of work at
+    their use, ``models/ssm.py``); the MoE layers take ``moe.moe_apply_ep``
+    where ``moe._moe_ffn`` picks it. The returned
     ``params`` are this rank's (``sharding.gather_params`` makes them
     whole). Checkpoints hold whole arrays, which rank 0 writes: every rank
     restores the same step, on any mesh."""

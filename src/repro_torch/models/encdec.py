@@ -11,6 +11,19 @@ card all three (the encoder's, the decoder's causal self-attention and the
 cross-attention, Sq != Sk) reach the flash kernel. Decode keeps a rolling
 self-attention cache and the static cross K and V, {"k", "v", "xk", "xv"}
 stacked over the decoder layers (L, B, S, Hk, Dh), as the reference does.
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules), the training forward is
+tensor-parallel (``parallel/tensor.py``); every leaf it reads there splits
+into units of independent work, and none is gathered. Each attention of
+the encoder and of the decoder (self and cross) projects this rank's query
+heads and its K and V heads column-parallel (``transformer.qkv``: the
+replicated input, and for cross-attention the replicated encoder states,
+one ``replicated`` for each layer's K and V products, so that the encoder
+states' cotangent sums each layer's partial part once), and ``wo`` is
+row-parallel; the GELU MLPs split their width; the embedding and the tied
+head with its cross-entropy split the vocabulary. The norms stay whole.
+Serving runs on one device, its parameters whole.
 """
 
 from __future__ import annotations
@@ -22,6 +35,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import tensor
 
 
 def enc_layer_specs(cfg: ModelConfig) -> dict:
@@ -57,55 +71,57 @@ def specs(cfg: ModelConfig) -> dict:
 def encode(params, frames, cfg: ModelConfig, serving: bool = False):
     """frames: (B, enc_len, D) stub embeddings -> encoder states. ``serving``
     (the prefill) takes the forward-only attention and no remat."""
-    b, s, _ = frames.shape
-    positions = torch.arange(s, device=frames.device)
+    positions = torch.arange(frames.shape[1], device=frames.device)
     x = frames.to(cfg.dtype) + L.sinusoidal(positions, cfg.d_model).to(cfg.dtype)
     attention = T.prefill_attention if serving else T.train_attention
 
     def layer(x, lp):
-        xn = T.norm(cfg, lp["ln1"], x)
-        q, k, v = T.qkv(lp["attn"], xn, cfg, positions, rope=False)
-        o = attention(q, k, v, cfg, causal=False)
-        h = x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"])
-        return h + L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), "gelu")
+        h = x + _attend(lp["attn"], T.norm(cfg, lp["ln1"], x), cfg, positions, attention,
+                        causal=False)[0]
+        return h + _mlp(lp, h, cfg)
 
     for lp in params["enc_layers"]:
         x = L.remat(cfg.remat and not serving, layer, x, lp)
     return T.norm(cfg, params["enc_ln_f"], x)
 
 
-def _cross_kv(lp, enc, cfg: ModelConfig):
-    b, se, _ = enc.shape
-    hk, dh = cfg.n_kv_heads, cfg.head_dim
-    k = L.matmul(enc, lp["xattn"]["wk"]).reshape(b, se, hk, dh)
-    v = L.matmul(enc, lp["xattn"]["wv"]).reshape(b, se, hk, dh)
-    return k, v
+def _attend(p, x, cfg: ModelConfig, positions, attention, *, causal: bool, kv_x=None):
+    """One attention without rope (self-attention, or with ``kv_x`` the
+    cross-attention to it) -> (output (B, S, D), K, V). Where the query
+    heads are split over "model", over this rank's heads, ``wo``
+    row-parallel."""
+    b, s, _ = x.shape
+    group = tensor.split_group(p["wq"].shape[-1], cfg.n_heads * cfg.head_dim)
+    q, k, v = T.qkv(p, x, cfg, positions, rope=False, group=group, kv_x=kv_x)
+    o = attention(q, k, v, cfg, causal=causal).reshape(b, s, -1)
+    return (L.matmul(o, p["wo"]) if group is None else tensor.row(o, p["wo"], group)), k, v
+
+
+def _mlp(lp, h, cfg: ModelConfig):
+    return L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), "gelu",
+                 tensor.mlp_group(lp["mlp"], cfg.d_ff))
 
 
 def _decoder(params, tokens, enc, cfg: ModelConfig, collect_cache: bool = False):
     """The decoder over the whole of ``tokens`` -> (final hidden states, and
     with ``collect_cache`` (the prefill: forward-only attention, no remat)
     each layer's (k, v, xk, xv), else None)."""
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)
-    x = L.embed(params["embed"], tokens).to(cfg.dtype)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = L.embed(params["embed"], tokens, T.vocab_group(params, cfg)).to(cfg.dtype)
     x = x + L.sinusoidal(positions, cfg.d_model).to(cfg.dtype)
     attention = T.prefill_attention if collect_cache else T.train_attention
     caches = []
 
     def layer(x, lp):
-        xn = T.norm(cfg, lp["ln1"], x)
-        q, k, v = T.qkv(lp["attn"], xn, cfg, positions, rope=False)
-        o = attention(q, k, v, cfg, causal=True)
-        h = x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"])
-        hn = T.norm(cfg, lp["ln_x"], h)  # cross-attention
-        qx = L.matmul(hn, lp["xattn"]["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-        kx, vx = _cross_kv(lp, enc, cfg)
-        ox = attention(qx, kx, vx, cfg, causal=False)
-        h = h + L.matmul(ox.reshape(b, s, -1), lp["xattn"]["wo"])
+        o, k, v = _attend(lp["attn"], T.norm(cfg, lp["ln1"], x), cfg, positions, attention,
+                          causal=True)
+        h = x + o
+        ox, kx, vx = _attend(lp["xattn"], T.norm(cfg, lp["ln_x"], h), cfg, positions, attention,
+                             causal=False, kv_x=enc)
+        h = h + ox
         if collect_cache:
             caches.append((k, v, kx, vx))
-        return h + L.mlp(lp["mlp"], T.norm(cfg, lp["ln2"], h), "gelu")
+        return h + _mlp(lp, h, cfg)
 
     for lp in params["dec_layers"]:
         x = L.remat(cfg.remat and not collect_cache, layer, x, lp)
@@ -117,7 +133,9 @@ def loss_fn(params, batch, cfg: ModelConfig):
     """batch: {"frames": (B, enc_len, D), "tokens", "labels": (B, S) int}."""
     enc = encode(params, batch["frames"], cfg)
     x, _ = _decoder(params, batch["tokens"], enc, cfg)
-    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab), batch["labels"])
+    group = T.vocab_group(params, cfg)
+    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab, group), batch["labels"],
+                          group=group)
 
 
 def init_cache_specs(cfg: ModelConfig, batch: int, seq_len: int):

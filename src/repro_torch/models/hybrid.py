@@ -9,6 +9,15 @@ whole rolling cache, as the reference's does. Mamba2 layers are a Python
 list (``mamba_layers``); the state keeps the reference's stacked layout:
 {"mamba": {"S", "conv"}: (L, ...)} and one KV cache per application of the
 shared block, {"k", "v"}: (n_apps, B, W, Hk, Dh).
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules), the embedding and the tied head with
+its cross-entropy split the vocabulary; each Mamba2 layer gathers its
+``in_proj`` and splits its ``gn``/``out_proj`` (``ssm.py``); the shared
+block's attention runs on this rank's heads (``transformer.attn_block``)
+and its MLP on this rank's block of the width. The shared block runs
+``n_apps`` times, so each rank's blocks of its leaves sum their gradient
+over the applications, as one device does. Serving runs on one device.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import tensor
 
 
 def n_apps(cfg: ModelConfig) -> int:
@@ -89,11 +99,12 @@ def _stack_states(per_layer):
 
 
 def _shared_mlp(sp, x, cfg: ModelConfig):
-    return x + L.mlp(sp["mlp"], T.norm(cfg, sp["ln2"], x), cfg.act)
+    return x + L.mlp(sp["mlp"], T.norm(cfg, sp["ln2"], x), cfg.act,
+                     tensor.mlp_group(sp["mlp"], cfg.d_ff))
 
 
 def forward(params, batch, cfg: ModelConfig):
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = L.embed(params["embed"], batch["tokens"], T.vocab_group(params, cfg)).to(cfg.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     for start, length, has_attn in _segments(cfg):
         x, _ = _mamba_run(params["mamba_layers"][start:start + length], x, cfg)
@@ -106,7 +117,9 @@ def forward(params, batch, cfg: ModelConfig):
 
 def loss_fn(params, batch, cfg: ModelConfig):
     x = forward(params, batch, cfg)
-    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab), batch["labels"])
+    group = T.vocab_group(params, cfg)
+    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab, group), batch["labels"],
+                          group=group)
 
 
 def prefill(params, batch, cfg: ModelConfig):

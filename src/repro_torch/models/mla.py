@@ -13,6 +13,16 @@ contracts directly against the cached compressed latents. The cache is
 (c_kv, k_rope): kv_lora_rank + rope_head_dim values per position instead of
 2 * H * d_head, the latent page that the RARO KV tiers would manage for
 deepseek-v3 (DESIGN.md §5).
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules), the training forward is
+tensor-parallel over the heads (``parallel/tensor.py``): ``wq_b`` and
+``wkv_b`` are column-parallel, from the replicated q latent and the
+replicated KV latent ``c_kv``; ``wo`` is row-parallel. ``wq_a``, ``wkv_a``
+and both latent norms stay whole, and nothing is gathered. The shared rope
+key ``k_rope`` is read by every local head, so it also goes through
+``replicated``: its cotangent is partial on each rank. The flash kernel then
+runs at the rank's heads. Decode (serving) runs on one device.
 """
 
 from __future__ import annotations
@@ -25,6 +35,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import tensor
 
 
 def mla_specs(cfg: ModelConfig) -> dict:
@@ -42,12 +54,16 @@ def mla_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _project_q(p, x, cfg: ModelConfig, positions):
+def _project_q(p, x, cfg: ModelConfig, positions, group=None):
+    """(q_nope, q_rope roped), at the heads ``wq_b`` holds: this rank's,
+    column-parallel from the replicated latent, where ``group`` splits
+    them."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
-    q = L.matmul(L.rmsnorm(p["q_ln"], L.matmul(x, p["wq_a"])), p["wq_b"])
-    q = q.reshape(b, s, h, dn + dr)
+    q_lat = L.rmsnorm(p["q_ln"], L.matmul(x, p["wq_a"]))
+    q = (L.matmul(q_lat, p["wq_b"]) if group is None
+         else tensor.column(q_lat, [p["wq_b"]], group)[0])
+    q = q.reshape(b, s, -1, dn + dr)
     qn, qr = q[..., :dn], q[..., dn:]
     qr = L.apply_rope(qr, positions, cfg.rope_theta)
     return qn, qr
@@ -72,19 +88,22 @@ def mla_attention(p, x, cfg: ModelConfig, positions, return_cache: bool = False,
     strided slice of the expanded latent, which the flash kernel reads in
     place."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    h = p["wq_b"].shape[-1] // (dn + dr)  # this rank's heads where they are split
+    group = tensor.split_group(h, cfg.n_heads)
 
-    qn, qr = _project_q(p, x, cfg, positions)
+    qn, qr = _project_q(p, x, cfg, positions, group)
     ckv, kr = _project_kv_latent(p, x, cfg, positions)
+    if group is not None:  # every local head reads both: their cotangents are partial
+        ckv, kr = C.replicated(ckv, group), C.replicated(kr, group)
 
     kv = L.matmul(ckv, p["wkv_b"]).reshape(b, s, h, dn + dv)
     kn, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     q = torch.cat([qn, qr], dim=-1)
 
-    o = attention(q, k, v, cfg)
-    out = L.matmul(o.reshape(b, s, h * dv), p["wo"])
+    o = attention(q, k, v, cfg).reshape(b, s, h * dv)
+    out = L.matmul(o, p["wo"]) if group is None else tensor.row(o, p["wo"], group)
     if return_cache:
         return out, (ckv, kr)
     return out

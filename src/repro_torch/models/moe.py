@@ -10,13 +10,14 @@ weight. Under a mesh with a model axis above 1 (``launch.mesh.set_mesh``),
 ``_moe_ffn`` takes the expert-parallel dispatch ``moe_apply_ep`` where the
 reference takes its ``shard_map``: tokens split over "model", routed to
 their experts' rank by ``all_to_all``. Where ``launch.train.run`` placed
-the parameters by the sharding rules (every MoE config without MLA), the
-attention, the dense MLPs, the shared experts and the vocabulary are
-tensor-parallel as in ``transformer.py``, and ``moe_apply`` computes each
-rank's experts (or each expert's block of its width) from the replicated
-routing. With ``cfg.mla`` each layer's
-attention is ``models/mla.py``'s, and the cache holds its latents (c_kv,
-k_rope) in place of K and V.
+the parameters by the sharding rules, the attention (GQA as in
+``transformer.py``, MLA as in ``mla.py``: over this rank's heads), the
+dense-first layers' MLPs, the shared experts, MTP's block and the
+vocabulary are tensor-parallel, and ``moe_apply`` computes each rank's
+experts (or each expert's block of its width) from the replicated routing.
+The router, the norms and MTP's ``proj`` stay whole. With ``cfg.mla`` each
+layer's attention is ``models/mla.py``'s, and the cache holds its latents
+(c_kv, k_rope) in place of K and V.
 
 Layers are Python lists (``moe_layers``, ``dense_layers``) where the
 reference stacks them for ``lax.scan``; the KV cache keeps its stacked
@@ -287,8 +288,8 @@ def _moe_ffn(cfg: ModelConfig, p, xn):
     config and the mesh only, as the reference's does, never the placement;
     each dispatch then takes the expert weights as the placement left them:
     ``moe_apply_ep`` this rank's E / tp experts (or slices whole ones), and
-    ``moe_apply`` whole weights on one device or on a family the placement
-    leaves whole (MLA), else this rank's experts or block of their width."""
+    ``moe_apply`` whole weights on one device, else this rank's experts or
+    block of their width."""
     if cfg.moe_hints:
         mesh = _ambient_mesh()
         if (mesh is not None and cfg.n_experts % mesh.shape["model"] == 0

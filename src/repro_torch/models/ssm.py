@@ -15,6 +15,29 @@ there is no KV cache.
 (``F.softplus`` takes a threshold shortcut and rounds otherwise). The scan's
 outputs are rounded to ``x``'s dtype before the per-head group norm, as in
 the reference, so in bf16 that norm runs in bf16.
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules, ``parallel/tensor.py``), the recurrences
+run whole on every rank, and each block's leaves are used so:
+
+- gathered at their use (``tensor.gathered``), their blocks being no unit
+  of independent work: mLSTM's ``w_up`` (its blocks straddle ``[u | z]``)
+  and ``wq``/``wk``/``wv`` (split over their input features, while the
+  scan reads every head); sLSTM's ``w`` (gate-major ``[i | f | z | o]``)
+  and its recurrent ``r`` (split over heads, but head j's recurrent term
+  feeds gate j of every channel, the reference's layout, kept); Mamba2's
+  ``in_proj`` (``[z | x | B | C | dt]``);
+- split over "ff" after the scan: mLSTM's and Mamba2's ``gn`` and their
+  row-parallel ``w_down``/``out_proj`` take this rank's block of the group
+  norm's output and of the gate z (``collectives.shard``: its backward
+  all-gathers the blocks' cotangents, so the whole recurrence upstream gets
+  them whole), and the ranks' partial outputs are summed;
+- whole: the depthwise ``conv``, mLSTM's ``w_if``/``b_if``, Mamba2's
+  ``a_log``/``dt_bias``/``d_skip``, the input norms, sLSTM's ``b``, ``gn``
+  and ``w_down`` (the rules keep these whole).
+
+No head-split tensor is read whole here (B and C of Mamba2 feed the whole
+scan on each rank), so no partial cotangent needs a sum of its own.
 """
 
 from __future__ import annotations
@@ -25,6 +48,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ParamSpec
+from repro_torch.parallel import collectives as C
+from repro_torch.parallel import tensor
 
 
 def _scan(step, carry, xs):
@@ -66,6 +91,18 @@ def _causal_depthwise_conv(x, w, state=None):
     xp = torch.cat([state, x], dim=1)
     y = sum(xp[:, i:i + x.shape[1]] * w[i] for i in range(k))
     return y, xp[:, -(k - 1):] if k > 1 else state
+
+
+def _gated_down(y, z, gn, w_down, di: int):
+    """``(y * gn * silu(z)) @ w_down`` for the group norm's output ``y`` and
+    the gate ``z`` (B, S, di). Where ``gn`` and ``w_down`` hold this rank's
+    block of the di features, over this rank's block of y and z,
+    row-parallel."""
+    group = tensor.split_group(gn.shape[0], di)
+    if group is None:
+        return L.matmul(y * gn * F.silu(z), w_down)
+    y, z = C.shard(y, group, -1), C.shard(z, group, -1)
+    return tensor.row(y * gn * F.silu(z), w_down, group)
 
 
 # ---------------------------------------------------------------------------
@@ -132,14 +169,15 @@ def mlstm_apply(p, x, cfg: ModelConfig, state=None):
     di = cfg.expand * d
     h = cfg.n_heads
     dh = di // h
+    wq, wk, wv = (tensor.gathered(p[name], 0, di) for name in ("wq", "wk", "wv"))
     xn = L.rmsnorm(p["ln"], x)
-    up = L.matmul(xn, p["w_up"])
+    up = L.matmul(xn, tensor.gathered(p["w_up"], 1, 2 * di))
     u, z = up[..., :di], up[..., di:]
     uc, conv_new = _causal_depthwise_conv(u, p["conv"], None if state is None else state["conv"])
     uc = F.silu(uc)
-    q = L.matmul(uc, p["wq"]).reshape(b, s, h, dh)
-    k = L.matmul(uc, p["wk"]).reshape(b, s, h, dh)
-    v = L.matmul(u, p["wv"]).reshape(b, s, h, dh)
+    q = L.matmul(uc, wq).reshape(b, s, h, dh)
+    k = L.matmul(uc, wk).reshape(b, s, h, dh)
+    v = L.matmul(u, wv).reshape(b, s, h, dh)
     gates = L.matmul(xn.float(), p["w_if"]) + p["b_if"]
     i_raw, f_raw = gates[..., :h], gates[..., h:]
 
@@ -152,8 +190,8 @@ def mlstm_apply(p, x, cfg: ModelConfig, state=None):
     log_f = -_softplus(-f_raw)  # log sigmoid
     hs, (C, n, m) = _mlstm_scan(q.float(), k.float() * (dh**-0.5), v.float(), i_raw, log_f,
                                 C0, n0, m0)
-    hs = _group_norm(hs.reshape(b, s, di).to(x.dtype), h) * p["gn"]
-    y = L.matmul(hs * F.silu(z), p["w_down"])
+    hs = _group_norm(hs.reshape(b, s, di).to(x.dtype), h)
+    y = _gated_down(hs, z, p["gn"], p["w_down"], di)
     return y, {"C": C, "n": n, "m": m, "conv": conv_new}
 
 
@@ -187,14 +225,14 @@ def slstm_apply(p, x, cfg: ModelConfig, state=None):
     heads = cfg.n_heads
     dh = d // heads
     xn = L.rmsnorm(p["ln"], x)
-    wx = L.matmul(xn, p["w"]).float()  # (B, S, 4d)
+    wx = L.matmul(xn, tensor.gathered(p["w"], 1, 4 * d)).float()  # (B, S, 4d)
 
     if state is None:
         c, n, m, h_prev = (torch.zeros((b, d), dtype=torch.float32, device=x.device)
                            for _ in range(4))
     else:
         c, n, m, h_prev = state["c"], state["n2"], state["m2"], state["h"]
-    r = p["r"].float()
+    r = tensor.gathered(p["r"], 0, heads).float()
 
     def step(carry, xt):
         c, n, m, h_prev = carry
@@ -259,7 +297,7 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None):
     h = _mamba2_heads(cfg)
     ph = di // h
     xn = L.rmsnorm(p["ln"], x)
-    proj = L.matmul(xn, p["in_proj"])
+    proj = L.matmul(xn, tensor.gathered(p["in_proj"], 1, 2 * di + 2 * n + h))
     z, xin, dt_raw = proj[..., :di], proj[..., di:2 * di], proj[..., 2 * di + 2 * n:]
     bc = proj[..., 2 * di:2 * di + 2 * n]
     conv_in = torch.cat([xin, bc], dim=-1)
@@ -291,5 +329,4 @@ def mamba2_apply(p, x, cfg: ModelConfig, state=None):
     y = ys.view(b, s, h, ph)
     y = y + p["d_skip"][:, None] * xc32
     y = _group_norm(y.reshape(b, s, di).to(x.dtype), h)
-    y = L.matmul(y * p["gn"] * F.silu(z), p["out_proj"])
-    return y, {"S": S, "conv": conv_new}
+    return _gated_down(y, z, p["gn"], p["out_proj"], di), {"S": S, "conv": conv_new}

@@ -57,15 +57,19 @@ def attn_specs(cfg: ModelConfig) -> dict:
     return s
 
 
-def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True, group=None):
+def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True, group=None, kv_x=None):
     """Queries, keys and values (B, S, heads, Dh), the head counts read off
-    the weights' shapes. With ``group`` (the query heads split over "model")
-    they are this rank's heads, from the replicated ``x``. Where the KV heads
-    stay whole (their count does not divide the model axis), every rank
-    projects them all and keeps those its queries read
+    the weights' shapes; with ``kv_x`` (cross-attention: whisper's encoder
+    states, no rope) the keys and values are ``kv_x``'s, (B, Sk, heads, Dh).
+    With ``group`` (the query heads split over "model") they are this rank's
+    heads, from the replicated ``x`` (and ``kv_x``: one ``replicated`` each).
+    Where the KV heads stay whole (their count does not divide the model
+    axis), every rank projects them all and keeps those its queries read
     (``tensor.kv_heads_for``); the whole weights' cotangents are then partial
     on each rank, and ``replicated`` sums them."""
     b, s, _ = x.shape
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
     dh = cfg.head_dim
     h, hk = p["wq"].shape[-1] // dh, p["wk"].shape[-1] // dh
     kv_whole = group is not None and hk == cfg.n_kv_heads
@@ -74,12 +78,16 @@ def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True, group=None):
         return C.replicated(p[name], group) if kv_whole and name not in ("wq", "bq") else p[name]
 
     ws = [param(w) for w in ("wq", "wk", "wv")]
-    ys = (tensor.column(x, ws, group) if group is not None
-          else [L.matmul(x, w) for w in ws])
+    if group is None:
+        ys = [L.matmul(x, ws[0])] + [L.matmul(src, w) for w in ws[1:]]
+    elif kv_x is None:
+        ys = tensor.column(x, ws, group)
+    else:
+        ys = tensor.column(x, ws[:1], group) + tensor.column(kv_x, ws[1:], group)
     ys = [y + param(bias) if bias in p else y for y, bias in zip(ys, ("bq", "bk", "bv"))]
     q = ys[0].reshape(b, s, h, dh)
-    k = ys[1].reshape(b, s, hk, dh)
-    v = ys[2].reshape(b, s, hk, dh)
+    k = ys[1].reshape(b, sk, hk, dh)
+    v = ys[2].reshape(b, sk, hk, dh)
     if kv_whole:
         sel = tensor.kv_heads_for(group, h, cfg.n_heads, cfg.n_kv_heads)
         if isinstance(sel, tuple):

@@ -8,6 +8,14 @@ of them; the other block's state passes through unchanged (the reference's
 axis; the decode state keeps the reference's stacked layout, {"mlstm": {C,
 n, m, conv}, "slstm": {c, n2, m2, h}}, each leaf (L, ...). Attention-free:
 there is no KV cache and no flash kernel on this path.
+
+On a mesh whose "model" axis splits the parameters (``launch.train.run``
+places them by the sharding rules), the embedding and the tied head with
+its cross-entropy split the vocabulary, and each block splits or gathers
+its leaves as ``ssm.py`` says (mLSTM: ``w_up``, ``wq``/``wk``/``wv``
+gathered, ``gn``/``w_down`` split; sLSTM: ``w`` and ``r`` gathered). The
+block a layer does not run keeps this rank's blocks with zero gradients
+(``idle_params``). Serving runs on one device.
 """
 
 from __future__ import annotations
@@ -66,14 +74,16 @@ def _run_layers(params, x, cfg: ModelConfig, cache=None):
 
 
 def forward(params, batch, cfg: ModelConfig):
-    x = L.embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+    x = L.embed(params["embed"], batch["tokens"], T.vocab_group(params, cfg)).to(cfg.dtype)
     x, _ = _run_layers(params, x, cfg)
     return T.norm(cfg, params["ln_f"], x)
 
 
 def loss_fn(params, batch, cfg: ModelConfig):
     x = forward(params, batch, cfg)
-    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab), batch["labels"])
+    group = T.vocab_group(params, cfg)
+    return L.softmax_xent(L.lm_logits(params["embed"], x, cfg.vocab, group), batch["labels"],
+                          group=group)
 
 
 def prefill(params, batch, cfg: ModelConfig):

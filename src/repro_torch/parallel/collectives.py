@@ -174,9 +174,10 @@ def mean_over(tensors, group):
     all-reduce: flattened into one float32 buffer, summed, divided by the
     group's size, and each returned in its own dtype and shape (on one rank
     every value comes back bit for bit)."""
-    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    sizes = [t.numel() for t in tensors]
+    flat = torch.empty(sum(sizes), dtype=torch.float32, device=tensors[0].device)
+    for t, part in zip(tensors, flat.split(sizes)):  # no f32 copy of each beside the buffer
+        part.copy_(t.detach().reshape(-1))
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat = flat / torch.full((), dist.get_world_size(group), dtype=flat.dtype,
-                             device=flat.device)
-    return [part.reshape(t.shape).to(t.dtype)
-            for t, part in zip(tensors, flat.split([t.numel() for t in tensors]))]
+    flat.div_(torch.full((), dist.get_world_size(group), dtype=flat.dtype, device=flat.device))
+    return [part.reshape(t.shape).to(t.dtype) for t, part in zip(tensors, flat.split(sizes))]

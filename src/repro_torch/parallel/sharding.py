@@ -18,9 +18,11 @@ At runtime (``launch.train.run`` on a ``launch.mesh.ProcessMesh``) the
 same rules place the parameters, as the reference's ``jax.device_put`` of
 ``param_shardings`` does: ``shard_params`` keeps each rank's block of every
 leaf whose spec splits it over "model", and ``gather_params`` all-gathers
-the blocks into whole leaves again (checkpoints, ``convert``). Families the
-runtime keeps whole (``parallel.tensor.placed``: MLA, encdec, ssm, hybrid)
-pass through both unchanged.
+the blocks into whole leaves again (checkpoints, ``convert``). Every
+family is placed, its stacked layer groups
+(``layers``, ``enc_layers``/``dec_layers``, ``mamba_layers``,
+``moe_layers``/``dense_layers``) and its ``mtp`` and ``shared`` subtrees
+leaf by leaf, as the dry run's per-device bytes count them.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import base, registry
 from repro_torch.models.base import NamedSharding, PartitionSpec
 from repro_torch.parallel import collectives as C
-from repro_torch.parallel import tensor
 from repro_torch.training.optim import OptState
 
 
@@ -73,10 +74,10 @@ def param_shardings(cfg: ModelConfig, specs, mesh):
 def split_dims(cfg: ModelConfig, mesh) -> list:
     """For each leaf of ``cfg``'s parameter tree (``tree_leaves`` order), the
     dim that the runtime splits over "model" on ``mesh``, or None: the rules'
-    ``param_pspecs`` for a placed family, None everywhere for the others and
-    on a model axis of 1. The params are never split over a data axis."""
+    ``param_pspecs``, None everywhere on a model axis of 1. The params are
+    never split over a data axis."""
     specs = registry.get_api(cfg).specs()
-    if not tensor.placed(cfg) or tp_size(mesh) == 1:
+    if tp_size(mesh) == 1:
         return [None] * len(base.tree_leaves(specs))
     pspecs = base.param_pspecs(specs, mesh, make_rules(cfg, mesh))
     return [next((d for d, ax in enumerate(ps) if ax == "model"), None)

@@ -1,8 +1,8 @@
-"""Tensor parallelism of the dense layers over a mesh's "model" axis: the
-port's stand-in for GSPMD's partitioning of the products, as
-``collectives.py`` stands in for ``shard_map``'s collectives.
+"""Tensor parallelism over a mesh's "model" axis: the port's stand-in for
+GSPMD's partitioning of the products, as ``collectives.py`` stands in for
+``shard_map``'s collectives.
 
-The reference places each parameter by the sharding rules
+The reference places each parameter of every family by the sharding rules
 (``sharding.param_shardings``) and lets GSPMD split the products that read
 it. Here each rank holds its block of every parameter the rules split
 (``sharding.shard_params``), and the layers call the products of this module
@@ -12,13 +12,23 @@ partial cotangents) to this rank's block of the output features; a
 row-parallel product takes this rank's block of the input features and sums
 the ranks' partial outputs (``collectives.psum``). Between the two, the
 activation stays split over the features (attention heads, MLP width,
-vocabulary columns).
+vocabulary columns, a recurrent block's head features).
+
+Some blocks are no unit of independent work: a block that straddles
+concatenated segments (mLSTM's ``[u | z]`` up-projection, Mamba2's
+``[z | x | B | C | dt]`` in-projection, sLSTM's gate-major ``[i | f | z |
+o]``), or a leaf whose split does not follow the recurrence that reads it
+(sLSTM's recurrent ``r``, split over heads while each head feeds every
+gate). Such a leaf is ``gathered`` at its use (all-gathered, its backward
+this rank's block of the replicated cotangent) and that part runs whole on
+every rank; the leaf, its gradient and its AdamW moments stay the rank's
+block at rest.
 
 A layer learns that a parameter is split from its shape: ``split_group``
 compares a dim's local size with the config's whole size and returns the
 ambient mesh's "model" group only where they differ. Whole parameters (no
-mesh, a model axis of 1, or a family the placement leaves replicated) take
-every function's one-device path unchanged.
+mesh, a model axis of 1, a leaf whose dim the axis does not divide, or the
+one-device serving paths) take every function's one-device path unchanged.
 """
 
 from __future__ import annotations
@@ -29,16 +39,6 @@ import torch.distributed as dist
 from repro_torch.launch.mesh import get_mesh
 from repro_torch.models.layers import matmul
 from repro_torch.parallel import collectives as C
-
-# the families whose parameters the runtime places by the rules; the others
-# (MLA attention, encdec, the recurrent ssm and hybrid) stay whole on every
-# rank and compute alike on a model axis above 1
-PLACED_FAMILIES = ("dense", "vlm", "moe")
-
-
-def placed(cfg) -> bool:
-    """Whether ``cfg``'s parameters are split over "model" at runtime."""
-    return cfg.family in PLACED_FAMILIES and not cfg.mla
 
 
 def split_group(local: int, whole: int):
@@ -66,6 +66,15 @@ def column(x, ws, group):
     cotangents for all of them) to this rank's block of each output."""
     x = C.replicated(x, group)
     return [matmul(x, w) for w in ws]
+
+
+def gathered(w, dim: int, whole: int):
+    """A parameter whole at its use: where ``w`` holds this rank's block of
+    its ``dim`` (``whole`` entries in all), the ranks' blocks all-gathered
+    (``collectives.unshard``, whose backward keeps this rank's block of the
+    replicated cotangent); a whole ``w`` as it is."""
+    group = split_group(w.shape[dim], whole)
+    return w if group is None else C.unshard(w, group, dim)
 
 
 def row(x, w, group):

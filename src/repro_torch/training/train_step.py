@@ -5,6 +5,7 @@ gradient accumulation (counterpart of ``repro.training.train_step``).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import base, registry
@@ -49,7 +50,8 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     With ``mesh`` (a ``launch.mesh.ProcessMesh``), ``batch`` is this rank's
     share along the data axes, and after the accumulation the step makes one
     all-reduce over them: the gradients' mean and the loss's, the
-    reference's deferred psum. Every rank then runs the same update. Where
+    reference's deferred psum (none where the data axes hold one rank, whose
+    mean is the identity). Every rank then runs the same update. Where
     the mesh's model axis splits the parameters (``sharding.shard_params``),
     each rank's ``params`` and gradients are its blocks: the forward's
     collectives already sum every gradient over "model" that needs it (the
@@ -60,6 +62,7 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     api = registry.get_api(cfg)
     loss_fn = api.loss_fn
     split = group = None
+    data_ranks = 1 if mesh is None else dist.get_world_size(mesh.data_group)
     if mesh is not None and sharding.tp_size(mesh) > 1:
         split = [d is not None for d in sharding.split_dims(cfg, mesh)]
         group = mesh.group("model") if any(split) else None
@@ -83,7 +86,7 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
             grads = base.tree_map(lambda g: g / microbatches, grads)
             loss = loss / microbatches
 
-        if mesh is not None:
+        if data_ranks > 1:
             loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
             grads = base.tree_unflatten(grads, leaves)
         params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state, split, group)

@@ -32,20 +32,28 @@ vocabulary and MLP width do not divide 3 (whole); and tinyllama in bf16.
 Tolerances, each with its reason:
 - f32 loss: rtol 1e-6; each gradient leaf: 1e-5 of its largest entry. The
   split products and the all-reduces sum in another order than one device,
-  as GSPMD's do (measured over the f32 cases: loss <= 1.5e-7, gradients
-  <= 3.1e-6 of the leaf's largest entry).
+  as GSPMD's do (measured over the f32 cases: loss <= 2.3e-7, gradients
+  <= 3.6e-6 of the leaf's largest entry).
 - grad norm: rtol 1e-6 (the blocks' squares summed over "model"; measured
-  <= 4.3e-7).
+  <= 2.5e-7).
 - bf16 (parameters and ``dtype``): the loss only, rtol 2e-3, as
   tests/test_torch_moe.py holds the bf16 model (the residual stream rounded
   to bf16 after every layer, an ulp apart in the two frameworks; measured
-  1.2e-4).
+  7.5e-5).
 - ``train.run`` at (2, 2), ten f32 steps, against one process: as
   tests/test_torch_runtime.py's ``TestRunOnAMesh`` holds the data-parallel
   run, losses rtol 1e-5, parameters rtol 1e-5 plus atol 1e-5 (measured:
   losses 1.5e-7, parameters 8.1e-6 absolute, where AdamW's step of an entry
   whose gradient nearly cancels takes the sums' order).
-- checkpoints across meshes, xlstm on a model axis of 2: bit for bit.
+- checkpoints across meshes: bit for bit.
+- xlstm's ``train.run`` on (1, 2), placed by the rules, against one
+  process, three steps at lr 2e-3 under ``train.run``'s warmup of 20 (steps
+  of 1e-4, 2e-4 and 3e-4): losses rtol 1e-5, parameters rtol 1e-5 plus atol
+  5e-5, three times the one entry measured apart. mLSTM's ``b_if`` gradient
+  is ill-conditioned (ROADMAP queue 3), and AdamW steps an entry whose
+  gradient nearly cancels by an amount that the sums' order moves
+  (measured: losses 7.6e-8, parameters 1.65e-5 absolute, one entry of layer
+  0's ``b_if``; every other leaf within the (2, 2) run's 1e-5).
 """
 
 import json
@@ -59,15 +67,12 @@ import pytest
 import torch
 
 import torch_parallel_workers as W
-from repro_torch import convert
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCHS, ShapeConfig, smoke_variant
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import Mesh
-from repro_torch.launch.train import run
 from repro_torch.models import base, registry
 from repro_torch.training import optim
-from repro_torch.training import train_step as ts
 
 ROOT = Path(__file__).resolve().parents[1]
 B, S = 4, 16  # each case's batch (over two data ranks) and text tokens
@@ -107,66 +112,17 @@ TINY_RUN = dict(arch="tinyllama-1.1b", smoke=True, batch=4, seq=32, lr=2e-3, log
 XLSTM_RUN = dict(arch="xlstm-125m", smoke=True, batch=2, seq=16, lr=2e-3, log_every=1, steps=3)
 
 
-def case_inputs(case, seed):
-    """A case's parameters (drawn by numpy on the port's specs, nothing zero
-    or one, so that every leaf's gradient is its own; bf16-rounded for the
-    bf16 case; in the reference's layout through ``convert``) and its batch,
-    whose first two labels of every row are ignored (-1)."""
-    cfg = W.tp_cfg(case)
-    rng = np.random.default_rng(seed)
-
-    def init(spec):
-        x = rng.standard_normal(spec.shape, dtype=np.float32)
-        if spec.init == "ones":
-            x = 1 + 0.1 * x
-        elif spec.init == "scaled" and len(spec.shape) >= 2:
-            x = x / np.sqrt(spec.shape[-2])
-        else:
-            x = 0.02 * x
-        t = torch.from_numpy(x)
-        return t.to(torch.bfloat16) if case["dtype"] == "bfloat16" else t
-
-    params = base.tree_map(init, registry.get_api(cfg).specs())
-    n_img = cfg.n_img_tokens if cfg.family == "vlm" else 0
-    labels = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
-    labels[:, :2] = -1
-    out = dict(params=convert.params_to_numpy(params), labels=labels,
-               tokens=rng.integers(0, cfg.vocab, (B, S)).astype(np.int32))
-    if n_img:
-        out["img_embeds"] = rng.standard_normal((B, n_img, cfg.d_model)).astype(np.float32)
-    return out
-
-
-def one_process_ckpt(ckpt_dir):
-    """One train step of smoke tinyllama (its specs' bf16) on one process,
-    saved into ``ckpt_dir``; the tree (params, state) as numpy by dotted
-    path, bf16 leaves as their int16 bits."""
-    cfg = smoke_variant(ARCHS["tinyllama-1.1b"])
-    params = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(1))
-    state = optim.init(params)
-    batch = {k: torch.from_numpy(v) for k, v in W.ckpt_batch(cfg).items()}
-    params, state, _ = ts.make_train_step(cfg, optim.AdamWConfig(lr=1e-3, warmup=1))(
-        params, state, batch)
-    CheckpointManager(ckpt_dir, async_=False).save(1, (params, state))
-    return host((params, state))
-
-
-def host(tree):
-    return {k: v.view(torch.int16).numpy() if v.dtype == torch.bfloat16 else v.numpy()
-            for k, v in base.tree_paths(tree).items()}
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The reference's outputs and each world's per-rank results."""
     tmp = tmp_path_factory.mktemp("tensor_parallel")
-    inputs = {c["name"]: case_inputs(c, seed) for seed, c in enumerate(CASES)}
+    inputs = {c["name"]: W.tp_inputs(c, seed, B, S) for seed, c in enumerate(CASES)}
     flat = {"cases": np.asarray(json.dumps(CASES))}
     for name, inp in inputs.items():
         flat.update({f"{name}/p/{k}": v for k, v in base.tree_paths(inp["params"]).items()})
         flat.update({f"{name}/{k}": v for k, v in inp.items() if k != "params"})
     np.savez(tmp / "in.npz", **flat)
-    none_tree = one_process_ckpt(tmp / "from_none")
+    none_tree = W.one_process_ckpt(tmp / "from_none")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), str(ROOT / "tests"), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_tp_ref.py"),
@@ -265,20 +221,10 @@ def test_rank_bytes_equal_the_dry_runs_per_device_bytes(runs, arch, overrides, s
 
 
 def test_train_run_on_2x2_matches_one_process(runs, one_thread):
-    """Ten f32 steps of ``train.run`` on (2, 2) against one process."""
-    orig = W.f32_materialize()
-    try:
-        params, hist = run(device="cpu", **TINY_RUN)
-    finally:
-        base.materialize = orig
-    want = {k: v.numpy() for k, v in base.tree_paths(params).items()}
-    for r in runs["run_2x2"]:
-        assert [s for s, _ in r["hist"]] == [s for s, _ in hist]
-        np.testing.assert_allclose([l for _, l in r["hist"]], [l for _, l in hist], rtol=1e-5,
-                                   atol=0)
-        assert r["params"].keys() == want.keys()
-        for k, v in want.items():
-            np.testing.assert_allclose(r["params"][k], v, rtol=1e-5, atol=1e-5, err_msg=k)
+    """Ten f32 steps of ``train.run`` on (2, 2) against one process; each
+    step averages over the two data ranks once."""
+    W.assert_run_matches(runs["run_2x2"], TINY_RUN)
+    assert all(r["mean_over_calls"] == TINY_RUN["steps"] for r in runs["run_2x2"])
 
 
 def test_checkpoint_saved_on_1x4_restores_without_a_mesh(runs):
@@ -288,7 +234,7 @@ def test_checkpoint_saved_on_1x4_restores_without_a_mesh(runs):
     _, tree, manifest = CheckpointManager(runs["tmp"] / "from_1x4").restore_latest(
         like, device="cpu")
     assert manifest["step"] == 1
-    got, want = host(tree), runs["ckpt"][0]["saved"]
+    got, want = W.host(tree), runs["ckpt"][0]["saved"]
     assert got.keys() == want.keys()
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
@@ -309,14 +255,9 @@ def test_checkpoint_saved_without_a_mesh_restores_on_1x4(runs):
 
 
 def test_xlstm_on_a_model_axis_of_two_equals_no_mesh(runs, one_thread):
-    """A family the placement keeps whole (ssm) computes alike on both model
-    ranks: bit for bit the run without a mesh."""
-    orig = W.f32_materialize()
-    try:
-        params, hist = run(device="cpu", **XLSTM_RUN)
-    finally:
-        base.materialize = orig
-    for r in runs["xlstm"]:
-        assert r["hist"] == hist
-        for k, v in base.tree_paths(params).items():
-            np.testing.assert_array_equal(r["params"][k], v.numpy(), err_msg=k)
+    """xlstm (ssm) placed by the rules on (1, 2), its split leaves gathered at
+    their use or split after the scans (models/ssm.py), against the run
+    without a mesh: three f32 steps, the losses as the (2, 2) run's, the
+    parameters within atol 5e-5, three times mLSTM's ``b_if`` entry measured
+    1.65e-5 apart (module docstring)."""
+    W.assert_run_matches(runs["xlstm"], XLSTM_RUN, params_atol=5e-5)

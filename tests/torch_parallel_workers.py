@@ -169,6 +169,30 @@ def f32_materialize():
     return orig
 
 
+def assert_run_matches(ranks, kw, params_atol=1e-5):
+    """Each rank's ``train_runs`` result of the f32 run ``kw`` held against
+    ``launch.train.run`` on one process (f32 parameters): the same logged
+    steps, the losses within rtol 1e-5, and the gathered parameters within
+    rtol 1e-5 plus ``params_atol`` (AdamW's step of an entry whose gradient
+    nearly cancels takes the sums' order)."""
+    from repro_torch.launch.train import run
+
+    orig = f32_materialize()
+    try:
+        params, hist = run(device="cpu", **kw)
+    finally:
+        base.materialize = orig
+    want = {k: v.numpy() for k, v in base.tree_paths(params).items()}
+    for r in ranks:
+        assert [s for s, _ in r["hist"]] == [s for s, _ in hist]
+        np.testing.assert_allclose([l for _, l in r["hist"]], [l for _, l in hist], rtol=1e-5,
+                                   atol=0)
+        assert r["params"].keys() == want.keys()
+        for k, v in want.items():
+            np.testing.assert_allclose(r["params"][k], v, rtol=1e-5, atol=params_atol,
+                                       err_msg=k)
+
+
 def run_cfg(kw):
     """The config ``launch.train.run`` trains for its keyword arguments."""
     if kw.get("cfg") is not None:
@@ -180,34 +204,40 @@ def train_runs(jobs):
     """``launch.train.run`` on this rank, once per job: (mesh shape, run's
     keyword arguments, f32 parameters). Returns each run's hist, final
     parameters (gathered whole where the mesh split them; numpy, f32) and
-    how many times it called ``moe_apply_ep``."""
+    how many times it called ``moe_apply_ep`` and the step's mean over the
+    data axes (``collectives.mean_over``)."""
     from repro_torch.launch import train
 
-    ep = moe.moe_apply_ep
-    calls = [0]
+    where = {"ep": (moe, "moe_apply_ep"), "mean": (C, "mean_over")}
+    real = {name: getattr(mod, attr) for name, (mod, attr) in where.items()}
+    calls = dict.fromkeys(where, 0)
 
-    def counted(*a, **kw):
-        calls[0] += 1
-        return ep(*a, **kw)
+    def counting(name):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return counted
 
-    moe.moe_apply_ep = counted
+    for name, (mod, attr) in where.items():
+        setattr(mod, attr, counting(name))
     out = []
     try:
         for shape, kw, f32 in jobs:
             mesh = M.make_mesh(shape, ("data", "model"), "cpu")
             orig = f32_materialize() if f32 else None
-            calls[0] = 0
+            calls.update(dict.fromkeys(calls, 0))
             try:
                 params, hist = train.run(mesh=mesh, device="cpu", **kw)
             finally:
                 if orig is not None:
                     base.materialize = orig
             params = sharding.gather_params(params, run_cfg(kw), mesh)
-            out.append(dict(hist=hist, ep_calls=calls[0],
+            out.append(dict(hist=hist, ep_calls=calls["ep"], mean_over_calls=calls["mean"],
                             params={k: v.float().numpy()
                                     for k, v in base.tree_paths(params).items()}))
     finally:
-        moe.moe_apply_ep = ep
+        for name, (mod, attr) in where.items():
+            setattr(mod, attr, real[name])
     return out
 
 
@@ -236,6 +266,40 @@ def tp_cfg(case):
     return cfg.with_(dtype=torch.bfloat16) if case["dtype"] == "bfloat16" else cfg
 
 
+def tp_inputs(case, seed: int, b: int, s: int) -> dict:
+    """A case's parameters (drawn by numpy on the port's specs in float32,
+    nothing zero or one, so that every leaf's gradient is its own;
+    bf16-rounded for a bf16 case; in the reference's layout through
+    ``convert``) and its batch of ``b`` rows of ``s`` tokens, whose first two
+    labels of every row are ignored (-1); a VLM's ``img_embeds`` and an
+    encoder-decoder's ``frames`` too."""
+    cfg = tp_cfg(case)
+    rng = np.random.default_rng(seed)
+
+    def init(spec):
+        x = rng.standard_normal(spec.shape, dtype=np.float32)
+        if spec.init == "ones":
+            x = 1 + 0.1 * x
+        elif spec.init == "scaled" and len(spec.shape) >= 2:
+            x = x / np.float32(np.sqrt(spec.shape[-2]))
+        else:
+            x = 0.02 * x
+        t = torch.from_numpy(x.astype(np.float32))
+        return t.to(torch.bfloat16) if case["dtype"] == "bfloat16" else t
+
+    params = base.tree_map(init, registry.get_api(cfg).specs())
+    labels = rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)
+    labels[:, :2] = -1
+    out = dict(params=convert.params_to_numpy(params), labels=labels,
+               tokens=rng.integers(0, cfg.vocab, (b, s)).astype(np.int32))
+    if cfg.family == "vlm":
+        out["img_embeds"] = rng.standard_normal((b, cfg.n_img_tokens, cfg.d_model),
+                                                dtype=np.float32)
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal((b, cfg.enc_len, cfg.d_model), dtype=np.float32)
+    return out
+
+
 def tp_case(case, inputs):
     """The loss and the gradients of one case on this rank, as a step on the
     case's mesh computes them: the parameters (the reference's layout,
@@ -243,7 +307,8 @@ def tp_case(case, inputs):
     rank's rows of the batch over the data axis, the loss and gradients
     averaged over it (``collectives.mean_over``, as the step does), the
     clipping norm over the mesh (``optim.global_norm``), and the gradients
-    gathered whole (``convert.params_to_numpy`` of the sharded tree)."""
+    gathered whole (``convert.params_to_numpy`` of the sharded tree); the
+    split leaves' paths and the rank's gradient bytes before the gather."""
     cfg = tp_cfg(case)
     api = registry.get_api(cfg)
     mesh = M.make_mesh(tuple(case["mesh"]), ("data", "model"), "cpu")
@@ -261,6 +326,8 @@ def tp_case(case, inputs):
     split = [dim is not None for dim in sharding.split_dims(cfg, mesh)]
     gnorm = optim.global_norm(grads, split, mesh.group("model"))
     return dict(loss=float(loss), grad_norm=float(gnorm), n_split=sum(split),
+                split_paths=[p for p, sp in zip(base.tree_paths(grads), split) if sp],
+                grad_bytes=dryrun.tree_bytes(grads),
                 grads=base.tree_paths(convert.params_to_numpy(grads, cfg, mesh)))
 
 
@@ -286,15 +353,15 @@ def placement_bytes(archs, shape):
     return out
 
 
-def ckpt_across_meshes(shape, save_dir, restore_dir):
+def ckpt_across_meshes(shape, save_dir, restore_dir, arch="tinyllama-1.1b"):
     """Checkpoints across meshes, on a mesh of ``shape``: one train step of
-    smoke tinyllama (its specs' bf16) placed over the mesh, saved by
+    ``arch``'s smoke variant (its specs' dtypes) placed over the mesh, saved by
     ``CheckpointManager(cfg=, mesh=)`` into ``save_dir``; then the newest
     checkpoint of ``restore_dir`` (written without a mesh) restored into the
     placement. Both trees come back gathered whole, numpy by dotted path."""
     from repro_torch.checkpoint.manager import CheckpointManager
 
-    cfg = smoke_variant(ARCHS["tinyllama-1.1b"])
+    cfg = smoke_variant(ARCHS[arch])
     mesh = M.make_mesh(shape, ("data", "model"), "cpu")
     params = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(0))
     params = sharding.shard_params(params, cfg, mesh)
@@ -310,12 +377,29 @@ def ckpt_across_meshes(shape, save_dir, restore_dir):
         (params, state), device="cpu")
     restored_bytes = dryrun.tree_bytes(restored)
     restored = sharding.gather_params(restored, cfg, mesh)
-
-    def host(tree):
-        return {k: v.numpy() if v.dtype != torch.bfloat16 else v.view(torch.int16).numpy()
-                for k, v in base.tree_paths(tree).items()}
-
     return dict(saved=host(saved), restored=host(restored), restored_bytes=restored_bytes)
+
+
+def host(tree):
+    """A tree as numpy by dotted path, bf16 leaves as their int16 bits."""
+    return {k: v.view(torch.int16).numpy() if v.dtype == torch.bfloat16 else v.numpy()
+            for k, v in base.tree_paths(tree).items()}
+
+
+def one_process_ckpt(ckpt_dir, arch="tinyllama-1.1b"):
+    """One train step of ``arch``'s smoke variant (its specs' dtypes) on one
+    process, saved into ``ckpt_dir``; the tree (params, state) as ``host``
+    gives it."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    cfg = smoke_variant(ARCHS[arch])
+    params = base.materialize(registry.get_api(cfg).specs(), torch.Generator().manual_seed(1))
+    state = optim.init(params)
+    batch = {k: torch.from_numpy(v) for k, v in ckpt_batch(cfg).items()}
+    params, state, _ = ts.make_train_step(cfg, optim.AdamWConfig(lr=1e-3, warmup=1))(
+        params, state, batch)
+    CheckpointManager(ckpt_dir, async_=False).save(1, (params, state))
+    return host((params, state))
 
 
 def ckpt_batch(cfg, b: int = 4, s: int = 16) -> dict:

@@ -1,20 +1,22 @@
 """The JAX reference's tensor-parallel training loss on fake CPU devices, for
-tests/test_torch_tensor_parallel.py. Run as a script, in a process of its
-own: ``XLA_FLAGS`` must give JAX four host devices before JAX starts.
+tests/test_torch_tensor_parallel.py and
+tests/test_torch_tensor_parallel_families.py. Run as a script, in a process
+of its own: ``XLA_FLAGS`` must give JAX four host devices before JAX starts.
 
   python tests/torch_tp_ref.py IN.npz OUT.npz
 
 IN holds ``cases`` (JSON: each case's ``name``, ``arch``, config
 ``overrides``, ``mesh`` (data, model) and ``dtype``) and, under
 ``<name>/``, its parameters in the reference's layout (``p/<dotted path>``,
-f32 numpy) and its batch (``tokens``, ``labels``, and the VLM's
-``img_embeds``). For each case the parameters are placed as the reference's
-``launch/train.py`` places them (``jax.device_put`` of
-``sharding.param_shardings`` on a mesh of that shape) and the batch over the
-data axis, and ``jax.jit(jax.value_and_grad(loss_fn))`` runs under
-``jax.set_mesh`` (where ``moe._moe_ffn`` reads the mesh). OUT holds each
-case's ``loss``, ``grad_norm`` (``optim.global_norm`` of the gradients) and
-gradients ``g/<dotted path>`` (f32).
+f32 numpy) and its batch (``tokens``, ``labels``, the VLM's ``img_embeds``
+and the encoder-decoder's ``frames``). For each case the parameters are
+placed as the reference's ``launch/train.py`` places them
+(``jax.device_put`` of ``sharding.param_shardings`` on a mesh of that
+shape) and the batch over the data axis, and
+``jax.jit(jax.value_and_grad(loss_fn))`` runs under ``jax.set_mesh`` (where
+``moe._moe_ffn`` reads the mesh). OUT holds each case's ``loss``,
+``grad_norm`` (``optim.global_norm`` of the gradients) and gradients
+``g/<dotted path>`` (f32).
 """
 
 import json
@@ -71,8 +73,8 @@ def case(c, inp, out):
     params = nest({k[len(pre):]: jnp.asarray(v, dtype) for k, v in inp.items()
                    if k.startswith(pre)})
     params = jax.device_put(params, sharding.param_shardings(cfg, api.specs(), mesh))
-    batch = {k: jnp.asarray(inp[f"{name}/{k}"]) for k in ("tokens", "labels", "img_embeds")
-             if f"{name}/{k}" in inp}
+    batch = {k: jnp.asarray(inp[f"{name}/{k}"])
+             for k in ("tokens", "labels", "img_embeds", "frames") if f"{name}/{k}" in inp}
     batch = jax.device_put(batch, NamedSharding(mesh, P("data")))
     with jax.set_mesh(mesh):
         loss, grads = jax.jit(jax.value_and_grad(api.loss_fn))(params, batch)
