@@ -27,6 +27,16 @@ Phases, one JSON line each:
   5. serve    launch.serve.run at tinyllama-1.1b's full widths and depth
               (random weights), RARO on and off, with the kernels' launch counts
               (exact), and the host syncs of one step of each, by source line
+ 5b. policy   the RARO KV-tier controller (commit_tier, append, raro_step) through
+              quant_store_pages: tests/test_kvcache_policy.py's six cases (cold
+              pages stay int4, hot pages promoted, a disabled controller static,
+              retry estimates grow with reads, elastic demotion under pressure,
+              capacity accounting) at the test's CacheConfig and at
+              tinyllama-1.1b's serve widths (4 KV heads of 64, the serve phase's
+              page size and pools, batch 4), each on the card and on the CPU from
+              the same numpy draws: every cache leaf, the moves and the retry
+              estimates equal, the test's assertion on the card's state, and
+              exactly one store launch per append and per quantizing move
   6. prefill  make_prefill at tinyllama-1.1b's full widths and depth, batch 4,
               2048-token prompts, then 32 make_serve_step steps, at kv_bits 16, 8
               and 4: prefill ms, prompt tokens/s, decode ms/step, launch counts
@@ -242,7 +252,7 @@ from repro_torch.configs import (  # noqa: E402
     ShapeConfig, deepseek_v3_671b, granite_moe_3b_a800m, raro_ssd, tinyllama_1_1b, whisper_medium,
     xlstm_125m, zamba2_2_7b)
 from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
-from repro_torch.core import modes  # noqa: E402
+from repro_torch.core import hotness, modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention_fwd, flash_attention_fwd_plain, kernel_block_k)
@@ -745,6 +755,147 @@ def full_width_cache(dev, cfg, rcfg):
 def masses_like(c, gen):
     """Random per-page attention masses, heavy enough to heat pages."""
     return torch.rand(c.hot.shape, generator=gen, device=c.hot.device) * 0.3
+
+
+# --------------------------------------------------------------------------
+# policy: the RARO KV-tier controller's behavioural cases on the card
+# --------------------------------------------------------------------------
+# tests/test_kvcache_policy.py's CacheConfig
+POLICY_TEST = dict(n_seqs=2, max_pages=8, page_size=4, n_kv_heads=2, head_dim=8,
+                   pool_pages=(8, 8, 64), migrate_per_step=4)
+POLICY_CASES = ("cold_pages_stay_dense", "hot_pages_get_promoted",
+                "disabled_controller_is_static_int4", "retry_estimate_grows_with_reads_and_density",
+                "elastic_recovery_demotes_under_pressure", "capacity_accounting_matches_tiers")
+
+
+def policy_case(name, ccfg, size):
+    """One of tests/test_kvcache_policy.py's six cases at the cache config
+    ``ccfg`` (``size`` "test" or "tinyllama"): (cache config, RARO config,
+    tokens, masses (tokens, B, MaxP) f32 numpy, the test's assertion on the
+    final cache). Token counts and the hot-then-cold schedule scale with the
+    page size, so each case commits as many pages per sequence as the
+    test's (4 tokens a page)."""
+    k = ccfg.page_size // POLICY_TEST["page_size"]
+    rcfg = tiers.RAROConfig()
+    tokens = {"retry_estimate_grows_with_reads_and_density": 16,
+              "elastic_recovery_demotes_under_pressure": 36}.get(name, 24) * k
+    masses = np.zeros((tokens, ccfg.n_seqs, ccfg.max_pages), np.float32)
+
+    def int4_only(c, cc, rc):
+        t = c.tier.cpu().numpy()
+        return bool((t[t >= 0] == modes.TIER_INT4).all())
+
+    ok = int4_only  # cold_pages_stay_dense
+    if name == "hot_pages_get_promoted":
+        masses[:, :, 0] = 0.6
+
+        def ok(c, cc, rc):
+            t = c.tier.cpu().numpy()
+            return bool((t[:, 0] == modes.TIER_BF16).all()
+                        and (t[:, 2][t[:, 2] >= 0] == modes.TIER_INT4).all())
+    elif name == "disabled_controller_is_static_int4":
+        rcfg = tiers.RAROConfig(enabled=False)
+        masses[:] = 0.4
+    elif name == "retry_estimate_grows_with_reads_and_density":
+        def ok(c, cc, rc):
+            lo = tiers.page_retry_estimate(c, rc).cpu().numpy()
+            hi = tiers.page_retry_estimate(c._replace(reads=c.reads + 50.0), rc).cpu().numpy()
+            sel = c.tier.cpu().numpy() >= 0
+            return bool((hi[sel] >= lo[sel]).all() and hi[sel].max() > 0)
+    elif name == "elastic_recovery_demotes_under_pressure":
+        # the test's pools at its size; the serve phase's at tinyllama's
+        ccfg = replace(ccfg, high_watermark=0.4,
+                       **({"pool_pages": (2, 4, 64)} if size == "test" else {}))
+        rcfg = tiers.RAROConfig(heat=hotness.HeatConfig(decay=0.6, hot_thresh=0.08,
+                                                        warm_thresh=0.02))
+        masses[:12 * k, :, :2] = 0.6  # hot, then cold for the rest
+
+        def ok(c, cc, rc):
+            return float(1.0 - c.free[0].float().mean()) <= 0.5 + 1e-6
+    elif name == "capacity_accounting_matches_tiers":
+        def ok(c, cc, rc):
+            p, hk, dh = cc.page_size, cc.n_kv_heads, cc.head_dim
+            per = {0: 2 * p * hk * dh * 2, 1: 2 * p * hk * dh, 2: p * hk * dh}
+            t = c.tier.cpu().numpy()
+            return paged.memory_bytes(c, cc) == sum(per[int(x)] for x in t[t >= 0])
+    return ccfg, rcfg, tokens, masses, ok
+
+
+def policy_run(ccfg, rcfg, tokens, masses, dev, key=0):
+    """The test's ``_fill`` on ``dev``: each step commit_tier, append and
+    raro_step, K and V drawn by numpy from ``key`` (copied to the device
+    once). Returns the final cache and the moves of every raro_step summed
+    by kind."""
+    rng = np.random.default_rng(key)
+    shape = (tokens, ccfg.n_seqs, ccfg.n_kv_heads, ccfg.head_dim)
+    ks = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    vs = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    ms = torch.from_numpy(masses).to(dev)
+    c = paged.init(ccfg, torch.float32, dev)
+    moves = {}
+    for t in range(tokens):
+        c = paged.append(c, ccfg, ks[t], vs[t], tiers.commit_tier(c, ccfg, rcfg))
+        c, stats = tiers.raro_step(c, ccfg, rcfg, ms[t])
+        for kind, n in stats.items():
+            moves[kind] = moves.get(kind, 0) + n
+    return c, {kind: int(n) for kind, n in moves.items()}
+
+
+def phase_policy(dev, cfg):
+    """tests/test_kvcache_policy.py's six cases on the card through
+    quant_store_pages, at the test's CacheConfig and at tinyllama-1.1b's
+    serve widths (4 KV heads of 64, the serve phase's page size, pools and
+    pages per sequence at batch 4). Each case runs on the card and on the
+    CPU (the plain versions) from the same numpy draws: every TieredKV leaf
+    (tier and slot tables, free masks, bf16 pages, int8/int4 codes and
+    scales, heat, reads, counters), the moves and page_retry_estimate must
+    be equal, and the test's assertion must hold on the card's state. The
+    counts are set to 0 just before each card run and read just after: one
+    store launch per append and, with RARO on, one per quantizing move of
+    raro_step (three a step); no other kernel. Returns the launches."""
+    sizes = {"test": paged.CacheConfig(**POLICY_TEST),
+             "tinyllama": serve.cache_config(cfg, STEPS, 4)}
+    total = Counter()
+    t_phase = time.perf_counter()
+    for size, base in sizes.items():
+        for name in POLICY_CASES:
+            ccfg, rcfg, tokens, masses, ok = policy_case(name, base, size)
+            t0 = time.perf_counter()
+            c_cpu, moves_cpu = policy_run(ccfg, rcfg, tokens, masses, "cpu")
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            c, moves = policy_run(ccfg, rcfg, tokens, masses, dev)
+            torch.cuda.synchronize()
+            card_ms = (time.perf_counter() - t0) * 1e3
+            n = counts()
+            want = {"tiered_decode_partial": 0, "flash_attention_fwd": 0,
+                    "quantize_pages": tokens * (4 if rcfg.enabled else 1)}
+            check(n == want, f"policy {size}/{name}: launches {n}, want {want}")
+            total.update(n)
+            for f in paged.TieredKV._fields:
+                a, b = getattr(c_cpu, f), getattr(c, f)
+                same = (all(torch.equal(x, y.cpu()) for x, y in zip(a, b)) if f == "free"
+                        else torch.equal(a, b.cpu()))
+                check(same, f"policy {size}/{name}: {f} differs between the card and the CPU")
+            check(moves == moves_cpu, f"policy {size}/{name}: moves {moves} vs {moves_cpu}")
+            est = tiers.page_retry_estimate(c, rcfg)
+            check(torch.equal(est.cpu(), tiers.page_retry_estimate(c_cpu, rcfg)),
+                  f"policy {size}/{name}: page_retry_estimate differs")
+            check(ok(c, ccfg, rcfg), f"policy {size}/{name}: the test's assertion fails on the card")
+            t = c.tier.cpu().numpy()
+            emit("policy", size=size, case=name, n_seqs=ccfg.n_seqs, max_pages=ccfg.max_pages,
+                 page_size=ccfg.page_size, n_kv_heads=ccfg.n_kv_heads, head_dim=ccfg.head_dim,
+                 pool_pages=list(ccfg.pool_pages), tokens=tokens, raro=rcfg.enabled,
+                 quant_store_pages_launches=n["quantize_pages"], moves=moves,
+                 tier_pages=[int((t == i).sum()) for i in range(3)],
+                 pool_occupancy=[float(1.0 - f.float().mean()) for f in c.free],
+                 max_retry_estimate=int(est.max()), card_ms=card_ms, cpu_ms=cpu_ms,
+                 card_ms_per_token=card_ms / tokens, equal_to_cpu=True)
+    emit("policy", cases=2 * len(POLICY_CASES), launches=dict(total),
+         seconds=time.perf_counter() - t_phase)
+    return dict(total)
 
 
 def phase_syncs(dev, cfg):
@@ -3444,8 +3595,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
-                         "(no path, serve, prefill, times, profile, train, moe, mla, families, "
-                         "dryrun, ssd, sweep or parallel phase)")
+                         "(no path, serve, policy, prefill, times, profile, train, moe, mla, "
+                         "families, dryrun, ssd, sweep or parallel phase)")
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the families phase's frames and tokens")
     a = ap.parse_args()
@@ -3464,6 +3615,10 @@ def main():
         phase_syncs(dev, cfg)
         runs = phase_serve(dev, cfg, STEPS, 4)
         launches = {k: runs[True][k] for k in ("tiered_decode_partial", "quantize_pages")}
+        # quantize_pages' main paths: the RARO serve run and the controller's cases
+        store_by_path = {"serve_raro": launches["quantize_pages"],
+                         "policy": phase_policy(dev, cfg)["quantize_pages"]}
+        launches["quantize_pages"] = sum(store_by_path.values())
         prefill_launches = phase_prefill(dev, cfg)["flash_attention_fwd"]
         times = phase_times(dev)  # before the profiler, whose cost outlasts its window
         phase_profile(dev, cfg)
@@ -3493,7 +3648,8 @@ def main():
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
-        extra = {"flash_attention_fwd": dict(
+        extra = {"quantize_pages": dict(launches_by_path=store_by_path),
+                 "flash_attention_fwd": dict(
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
                 dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}),
             granite_bf16=dict(**times["flash_granite"], max_abs_err={

@@ -118,16 +118,19 @@ def run(steps=64, batch=4, raro_enabled=True, seed=0, cfg=None, params=None, qui
     return out
 
 
-def main():
+def main(argv=None):
+    """The command line (``argv``, else ``sys.argv``): RARO, then the static
+    int4 baseline. Returns both runs' results, keyed by RARO on or off."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--device", default=None, help="default: cuda")
-    a = ap.parse_args()
+    a = ap.parse_args(argv)
     print("== RARO tiered KV serving ==")
-    run(steps=a.steps, batch=a.batch, raro_enabled=True, device=a.device)
+    raro = run(steps=a.steps, batch=a.batch, raro_enabled=True, device=a.device)
     print("== static int4-only baseline (QLC analogue) ==")
-    run(steps=a.steps, batch=a.batch, raro_enabled=False, device=a.device)
+    static = run(steps=a.steps, batch=a.batch, raro_enabled=False, device=a.device)
+    return {True: raro, False: static}
 
 
 if __name__ == "__main__":

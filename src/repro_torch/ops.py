@@ -99,6 +99,20 @@ def at_add(dst, idx, src):
     return _extended(dst).index_add_(0, i, _rows(src, idx, dst))[:n]
 
 
+def at_add_in_order(dst, idx, src):
+    """``dst.at[idx].add(src, mode="drop")`` along dim 0 for float lanes of
+    unequal size. On the CPU each lane is added into ``dst``'s running value
+    one after another in lane order (``index_add_`` runs serially there), as
+    the reference's scatter-add adds them: its float result bit for bit. On
+    CUDA, where ``index_add_``'s atomic adds take no fixed order, each row's
+    lanes are summed through one-hot masks and then added, the same sums run
+    after run, within float32 rounding of the CPU's."""
+    if dst.device.type == "cpu":
+        return at_add(dst, idx, src)
+    n = dst.shape[0]
+    return dst + segment_sum(_rows(src, idx, dst), drop_index(idx, n).reshape(-1), n)
+
+
 def _at_reduce(dst, idx, src, how):
     n = dst.shape[0]
     i = drop_index(idx, n).reshape(-1)

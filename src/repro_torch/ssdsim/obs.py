@@ -13,10 +13,11 @@ accumulator leaves of :class:`repro_torch.ssdsim.state.SSDState`:
 3. windowed time series (``obs_ts``) by simulated time.
 
 ``cfg.obs_level`` "off" runs no observability op and keeps every obs leaf
-zero-length. Float sums that take values of unequal size go through one-hot
-masks (``ops.segment_sum``), so the card adds them in a fixed order; counts
-add exactly in any order. Host-side decoders (numpy, on tensors or numpy
-leaves) are at the bottom.
+zero-length. Float sums of per-read values go through
+``ops.at_add_in_order``: on the CPU each lane is added into the state in
+lane order, as the reference's scatter-adds do; on the card, in a fixed
+order through one-hot masks. Counts add exactly in any order.
+Host-side decoders (numpy, on tensors or numpy leaves) are at the bottom.
 """
 
 from __future__ import annotations
@@ -133,7 +134,11 @@ def record_reads(s, cfg: geometry.SimConfig, *, mode, rd, lat_us, queue_us,
     cell = torch.where(rd, m * nbin + b, modes.N_MODES * nbin)
     lat_mode = ops.at_add(s.obs_lat_mode.reshape(-1), cell, 1.0).reshape(s.obs_lat_mode.shape)
 
-    # time series: reads / retries / queue per window of each read's own time
+    # time series: reads / retries / queue per window of each read's own
+    # time. The float sums here add each lane into the state in lane order
+    # on the CPU (ops.at_add_in_order), as the reference's scatter-adds do: a
+    # per-chunk sum added afterwards rounds otherwise, and in a cell that
+    # collects most reads the difference grows past 1e-5 within a run
     w = torch.where(rd, _window_of(cfg, t_ms).long(), n_win)
     series = {TS_READS: torch.ones_like(lat_us, dtype=torch.float32),
               TS_RETRIES: retries.float(),
@@ -143,17 +148,18 @@ def record_reads(s, cfg: geometry.SimConfig, *, mode, rd, lat_us, queue_us,
     vals = torch.zeros((w.shape[0], N_SERIES), dtype=torch.float32, device=w.device)
     for row, v in series.items():
         vals[:, row] = v
-    ts = s.obs_ts + ops.segment_sum(vals, w, n_win)
+    ts = ops.at_add_in_order(s.obs_ts, w, vals)
     s = s._replace(obs_lat_mode=lat_mode, obs_ts=ts)
 
     if not full(cfg):
         return s
     comps = [queue_us, sense_us, retry_us, chanw_us, xfer_us]
     comps.append(rebuild_us if rebuild_us is not None else torch.zeros_like(queue_us))
-    add = ops.segment_sum(torch.stack([c.float() for c in comps], dim=1), cell,
-                          modes.N_MODES * nbin)  # (3 * nbin, N_COMPONENTS)
-    add = add.reshape(modes.N_MODES, nbin, N_COMPONENTS).permute(0, 2, 1)
-    return s._replace(obs_lat_comp=s.obs_lat_comp + add)
+    # the state's (mode, component, bin) as (mode * bin, component) rows
+    comp = s.obs_lat_comp.permute(0, 2, 1).reshape(modes.N_MODES * nbin, N_COMPONENTS)
+    comp = ops.at_add_in_order(comp, cell, torch.stack([c.float() for c in comps], dim=1))
+    comp = comp.reshape(modes.N_MODES, nbin, N_COMPONENTS).permute(0, 2, 1).contiguous()
+    return s._replace(obs_lat_comp=comp)
 
 
 def record_chunk(s, cfg: geometry.SimConfig, *, t_ms, writes, conversions,
@@ -177,17 +183,17 @@ def record_chunk(s, cfg: geometry.SimConfig, *, t_ms, writes, conversions,
 def record_events(s, cfg: geometry.SimConfig, *, mask, block, from_mode,
                   to_mode, reason, retry_est, pages):
     """Append ``mask``-ed (K,) event lanes to the ring at ``(obs_ev_count +
-    rank) mod capacity`` in lane order; the counter keeps the true total.
-    With K <= capacity no two lanes share a slot, so the order of the
-    writes does not matter."""
+    rank) mod capacity`` in lane order, so the ring holds the most recent
+    ``capacity`` events; the counter keeps the true total. Only the last
+    ``capacity`` masked lanes are written (an earlier one's slot is taken
+    by a later lane of the same call), so no two writes share a slot and
+    their order does not matter."""
     if not full(cfg):
         return s
     cap = s.obs_events.shape[0]
-    if mask.shape[0] > cap:
-        raise ValueError(f"{mask.shape[0]} event lanes exceed the ring's {cap} slots")
     rank = torch.cumsum(mask.to(torch.int32), 0) - 1
     pos = (s.obs_ev_count + rank) % cap
-    idx = torch.where(mask, pos, cap)
+    idx = torch.where(mask & (rank >= mask.sum() - cap), pos, cap)
     fields = (s.clock_ms, block, from_mode, to_mode, reason, retry_est, pages)
     rows = torch.stack(
         [torch.as_tensor(v, device=mask.device).float().broadcast_to(mask.shape)

@@ -257,17 +257,27 @@ def test_reference_gc_cannot_fire_at_default_thresholds(mid_run, which):
 
 
 def test_event_ring_refuses_more_lanes_than_slots(mid_run):
-    """Where the reference's ring scatter would write two lanes to one slot
-    (more event lanes than ring slots, an order neither framework defines),
-    the port raises instead."""
+    """More event lanes than ring slots: the reference's ring scatter writes
+    two lanes to one slot, and its docstring promises the most recent
+    ``capacity`` events. The port writes only the last ``capacity`` masked
+    lanes, so the ring holds the same events as the reference's, whose
+    scatter on the CPU lets the later lane win."""
+    from repro.ssdsim import obs as j_obs
+
     j_cfg, leaves = mid_run
-    t_cfg = port_config(dataclasses.replace(j_cfg, obs_event_capacity=2), geometry)
-    _, ts = _states(leaves)
-    ts = ts._replace(obs_events=torch.zeros((2, obs.N_EV_FIELDS)))
-    lanes = torch.ones(3, dtype=torch.bool)
-    with pytest.raises(ValueError, match="exceed the ring"):
-        obs.record_events(ts, t_cfg, mask=lanes, block=torch.zeros(3), from_mode=0, to_mode=1,
-                          reason=obs.REASON_GC, retry_est=torch.zeros(3), pages=torch.zeros(3))
+    j_cfg, t_cfg = _configs(j_cfg, obs_event_capacity=2)
+    js, ts = _states(leaves, obs_events=np.zeros((2, obs.N_EV_FIELDS), np.float32))
+    mask = np.array([True, False, True, True, True])
+    pages = np.arange(5, dtype=np.float32)
+    kw = dict(from_mode=0, to_mode=1, reason=obs.REASON_GC)
+    js = j_obs.record_events(js, j_cfg, mask=jnp.asarray(mask), block=jnp.asarray(pages),
+                             retry_est=jnp.zeros(5), pages=jnp.asarray(pages), **kw)
+    ts = obs.record_events(ts, t_cfg, mask=torch.tensor(mask), block=torch.tensor(pages),
+                           retry_est=torch.zeros(5), pages=torch.tensor(pages), **kw)
+    np.testing.assert_array_equal(ts.obs_events.numpy(), np.asarray(js.obs_events))
+    assert int(ts.obs_ev_count) == int(js.obs_ev_count)
+    records, total, dropped = obs.decode_events(ts, t_cfg)
+    assert [r["pages"] for r in records] == [3, 4] and dropped == total - 2
 
 
 @pytest.mark.parametrize("case", ["plain", "faults", "degraded"])
