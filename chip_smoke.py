@@ -4,9 +4,10 @@
   python3 chip_smoke.py           # every phase; exits non-zero on any failure
   python3 chip_smoke.py --quick   # device, build, kernels against plain at full width
 
-Phases, one JSON line each:
+Phases, one JSON line each (and after each, a ``phase_seconds`` line with its
+name and wall seconds; their total on the line before the last):
   1. device   the card, its count, and nvidia-smi's name and power limit
-  2. build    the three CUDA kernels from src/repro_torch/csrc, nvcc seconds,
+  2. build    the four CUDA kernels from src/repro_torch/csrc, nvcc seconds,
               ptxas report, and flash attention's dynamic shared memory per pair
               of head dims
   3. kernels  each kernel against its plain PyTorch version on the card, at the
@@ -18,7 +19,10 @@ Phases, one JSON line each:
               bf16, and a ragged MLA case; and at the rank-local heads of the
               parallel phase's tensor-parallel training) and at the CPU tests' shapes
               (quantize_pages by both entries: contiguous pages, and the store into
-              the tier pools, every pool tensor exact)
+              the tier pools, every pool tensor exact); ordered_scatter_add bit for
+              bit against the CPU's serial index_add_ on the same lanes, at the obs
+              sums' rows (64 x 9 and 192 x 6) and 1, 128 and 1,024 lanes, with
+              duplicates and drops, every lane to one row, every lane dropped
   4. path     the tiered serve step on the card against the same step on the CPU,
               from the same state, along 16 steps of a 2-layer model; then
               make_prefill and 8 make_serve_step steps the same way, at kv_bits
@@ -92,8 +96,15 @@ Phases, one JSON line each:
               peak device memory, the device's busy share over a few profiled
               chunks, check_invariants on the final state, and the card held chunk
               by chunk against the port on the CPU (the first 16 chunks; the fault
-              storm whole) by tests/torch_ssd_compare.py's rule. No kernel: the
-              simulator's hot operations are plain PyTorch ops on the card
+              storm whole) by tests/torch_ssd_compare.py's rule (the open-loop
+              run's obs_lat_comp by lindley_loose but for the components no
+              Lindley sum feeds); (d) tests/test_torch_wearout.py's parity-rebuild
+              cell (tiny geometry, obs_level "full", 8,192 reads) in lockstep, card
+              against CPU, every chunk by the strict rule and obs_ts and
+              obs_lat_comp bit for bit, after the same run with the former one-hot
+              sums, whose gaps are printed. The obs float sums run the
+              ordered_scatter_add kernel (2 launches a chunk at obs_level "full",
+              1 at "counters", counted per run); the rest are plain PyTorch ops
  12. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
               (a) configs/raro_ssd.py's tail_latency_sweep() whole (Table III
               geometry, read_disturb_hammer, 80,000 requests, Baseline and RARO
@@ -136,8 +147,9 @@ Phases, one JSON line each:
               recurrent state within 1e-3, greedy tokens equal), and one loss_fn
               forward (1e-5 relative). (b) The main serving path at full width
               and depth in bf16 (the recurrent states f32), batch 4: whisper over
-              1500 frames and a 416-token prompt, xlstm and zamba2 over 2048
-              tokens, then 32 make_serve_step steps: prefill ms, decode ms per
+              1500 frames and a 416-token prompt, xlstm and zamba2 over 1024
+              tokens (their prefill a host step per token), then 32
+              make_serve_step steps: prefill ms, decode ms per
               step, tokens/s, peak memory, flash launches (exactly 72 per whisper
               prefill, 0 per decode step, 0 for xlstm and zamba2), host syncs of a
               decode step, a profiled prefill (256 tokens for the recurrent
@@ -156,7 +168,7 @@ Phases, one JSON line each:
               (per-device bytes, estimated peak, fits); (b) each arch whose
               parameters fit the card, one cell per kind (train_4k, prefill_32k,
               decode_32k) at published widths and depth with global_batch cut to 1
-              (xlstm's and zamba2's train and prefill to 2048 tokens), and every
+              (xlstm's and zamba2's train and prefill to 1024 tokens), and every
               whole cell that fits: each cell the dry run rules out printed with
               its bytes; each other run on the card, its materialized arguments'
               bytes equal to the dry run's per-device argument bytes, the FLOPs
@@ -217,8 +229,15 @@ Phases, one JSON line each:
               on the (1, 2) mesh, its peak beside one process's, ms a step,
               gloo's all-reduce and all-gather calls and host ms, and the flash
               launches of each step at the rank's heads (whisper 144, deepseek-v3
-              7; the kernel is held at those rank-local shapes in `kernels`)
-Then the `kernels` line and, last, the `ok` line.
+              7; the kernel is held at those rank-local shapes in `kernels`);
+              (h) MoE over two data ranks: granite-moe-3b-a800m at its published
+              widths cut to 2 MoE layers, f32, capacity factor 0.5, on the (2, 1)
+              mesh, two processes of 2 x 256 tokens against one process on the
+              whole batch: the loss within 1e-5, each gradient leaf within 1e-5 of
+              its largest entry, assignments dropped (the ranks' drops adding up
+              to the one process's), ms a step and gloo's share
+Then the `kernels` line (every kernel launched on its main path), the phases'
+seconds and, last, the `ok` line.
 """
 
 from __future__ import annotations
@@ -264,6 +283,8 @@ from repro_torch.kernels.quant_page.ref import quant_pages_ref  # noqa: E402
 from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E402
     tiered_decode_partial, tiered_decode_partial_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
+from repro_torch.kernels.ordered_scatter_add.ordered_scatter_add import (  # noqa: E402
+    ordered_scatter_add, ordered_scatter_add_plain)
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
@@ -362,6 +383,17 @@ FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
                 (2, 33, 95, 4, 1, 16, False), (1, 257, 300, 2, 2, 128, True),
                 (3, 100, 170, 8, 2, 64, False)]
 
+# the simulator's float observability sums (ssdsim/obs.py::record_reads), one
+# chunk of reads at a time: the time series obs_ts (64 windows x 9 series) and
+# the component sums obs_lat_comp as (3 modes x 64 bins, 6 components) rows;
+# lanes: one, the tiny geometry's chunk (128) and Table III's (1,024)
+ORDERED_ROWS = {"obs_ts": (64, 9), "obs_lat_comp": (3 * 64, 6)}
+ORDERED_LANES = (1, 128, 1024)
+ORDERED_TIME_LANES = 1024  # the main path's chunk (Table III geometry)
+# the kernel's other paths: rows of 128 (four columns a thread), more lanes
+# than one tile of shared memory holds, rows wider than a warp, no lanes
+ORDERED_EDGES = [(7, 128, 300), (5, 1, 9000), (300, 33, 2000), (3, 2, 0)]
+
 KERNELS = {
     "tiered_decode_partial": dict(
         route="cuda", source="src/repro_torch/csrc/tiered_attention.cu",
@@ -372,9 +404,13 @@ KERNELS = {
     "flash_attention_fwd": dict(
         route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash_attention.py:63"),
+    "ordered_scatter_add": dict(
+        route="cuda", source="src/repro_torch/csrc/ordered_scatter_add.cu",
+        replaces="no Pallas kernel: the reference's drop-mode scatter-adds "
+                 "src/repro/ssdsim/obs.py:192 and :218 (record_reads)"),
 }
 COUNTERS = {"tiered_decode_partial": tiered_decode_partial, "quantize_pages": quantize_pages,
-            "flash_attention_fwd": flash_attention_fwd}
+            "flash_attention_fwd": flash_attention_fwd, "ordered_scatter_add": ordered_scatter_add}
 
 
 def check(ok, msg):
@@ -517,6 +553,28 @@ def flash_cost(q, k, v, causal=True):
     return bytes_, 2 * (d + dv) * b * h * pairs
 
 
+def ordered_inputs(rng, rows, cols, lanes, dev, how="mixed"):
+    """dst (rows, cols), idx (lanes,) int64 and src (lanes, cols), float32 of
+    mixed magnitudes, so that the order of the adds shows in the rounding.
+    ``how``: "mixed" indices with duplicates and drops (as ``ops.drop_index``
+    leaves them: a dropped lane names row ``rows``); "one_row" every lane to
+    row 1; "dropped" every lane past the end."""
+    dst = (rng.standard_normal((rows, cols)) * 1e3).astype(np.float32)
+    src = (rng.standard_normal((lanes, cols))
+           * 10.0 ** rng.integers(-4, 5, (lanes, cols))).astype(np.float32)
+    idx = {"mixed": rng.integers(0, rows + 1, lanes), "one_row": np.ones(lanes),
+           "dropped": np.full(lanes, rows)}[how].astype(np.int64)
+    return [torch.from_numpy(a).to(dev) for a in (dst, idx, src)]
+
+
+def ordered_cost(dst, idx, src):
+    """(bytes, flops) of one launch: dst, idx and src read once, the output
+    written once; one add per element of each lane kept."""
+    kept = int(((idx >= 0) & (idx < dst.shape[0])).sum())
+    bytes_ = 2 * dst.numel() * 4 + idx.numel() * 8 + src.numel() * 4
+    return bytes_, kept * src.shape[1]
+
+
 def bound_ms(bytes_, flops, rate=F32_FLOP_PER_S):
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -541,7 +599,8 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
-    report = build.build(["tiered_attention", "quant_page", "flash_attention"])
+    report = build.build(["tiered_attention", "quant_page", "flash_attention",
+                          "ordered_scatter_add"])
     smem = build.load("flash_attention").flash_attention_smem_bytes
     smem.restype = ctypes.c_int
     flash_smem = {f"D{d},{dv} {dt}": smem(d, dv, int(dt == "bf16")) for d, dv in HEAD_DIMS
@@ -684,6 +743,33 @@ def check_flash(dev, full_only):
              b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
              sk_valid=sk_valid, atol=atols, rtol=FLASH_TOL[dt], max_abs_err=errs)
     return worst
+
+
+def check_ordered(dev, full_only):
+    """The kernel against its plain version on the CPU (serial ``index_add_``,
+    the reference's lane order) on the same lanes, bit for bit: both
+    instruments' rows at 1, 128 and 1,024 lanes with duplicates and drops,
+    every lane to one row, every lane dropped, and ORDERED_EDGES; ``dst``
+    left as it was."""
+    rng = np.random.default_rng(5)
+    cases = [(name, rc, lanes, "mixed") for name, rc in ORDERED_ROWS.items()
+             for lanes in (ORDERED_LANES[-1:] if full_only else ORDERED_LANES)]
+    cases += [("obs_lat_comp", ORDERED_ROWS["obs_lat_comp"], ORDERED_LANES[-1], how)
+              for how in ("one_row", "dropped")]
+    if not full_only:
+        cases += [("edge", (rows, cols), lanes, "mixed") for rows, cols, lanes in ORDERED_EDGES]
+    for name, (rows, cols), lanes, how in cases:
+        dst, idx, src = ordered_inputs(rng, rows, cols, lanes, dev, how)
+        before = dst.clone()
+        out = ordered_scatter_add(dst, idx, src)
+        torch.cuda.synchronize()
+        want = ordered_scatter_add_plain(dst.cpu(), idx.cpu(), src.cpu())
+        check(torch.equal(out.cpu(), want), f"ordered_scatter_add {name} L={lanes} {how}: "
+              f"{float((out.cpu() - want).abs().max())} from the CPU's lane order")
+        check(torch.equal(dst, before), f"ordered_scatter_add {name}: dst was written")
+        emit("kernels", kernel="ordered_scatter_add", rows=[rows, cols], lanes=lanes, idx=how,
+             bit_equal_to_cpu=True)
+    return 0.0
 
 
 def to_device(caches, dev):
@@ -871,7 +957,8 @@ def phase_policy(dev, cfg):
             card_ms = (time.perf_counter() - t0) * 1e3
             n = counts()
             want = {"tiered_decode_partial": 0, "flash_attention_fwd": 0,
-                    "quantize_pages": tokens * (4 if rcfg.enabled else 1)}
+                    "quantize_pages": tokens * (4 if rcfg.enabled else 1),
+                    "ordered_scatter_add": 0}
             check(n == want, f"policy {size}/{name}: launches {n}, want {want}")
             total.update(n)
             for f in paged.TieredKV._fields:
@@ -1095,7 +1182,7 @@ def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
               and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
               f"non-finite logits at kv_bits {bits}")
         want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0,
-                "quantize_pages": 0}
+                "quantize_pages": 0, "ordered_scatter_add": 0}
         check(n_prefill == want and n == want,
               f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
         check(cache["k"].shape[2] == prompt + steps
@@ -1137,7 +1224,7 @@ def phase_serve(dev, cfg, steps, batch):
             check(len(finite) == steps and bool(torch.stack(finite).all()), "non-finite logits")
             want = {"tiered_decode_partial": 3 * cfg.n_layers * steps,
                     "quantize_pages": (4 if raro else 1) * cfg.n_layers * steps,
-                    "flash_attention_fwd": 0}
+                    "flash_attention_fwd": 0, "ordered_scatter_add": 0}
             check(n == want, f"launches {n}, want {want}")
             check(all(math.isfinite(out[k]) for k in ("mean_prob_drift", "final_prob_drift")),
                   f"drift is not finite: {out}")
@@ -1182,7 +1269,7 @@ def top(table, per, n=8):
     return [[k, v / per] for k, v in sorted(table.items(), key=lambda kv: -kv[1])[:n]]
 
 
-def phase_profile(dev, cfg, steps=4, batch=4):
+def phase_profile(dev, cfg, steps=2, batch=4):
     """Where a full-width RARO step spends its time: a short run after a warm-up one."""
     api = registry.get_api(cfg)
     params = base.materialize(api.specs(), torch.Generator(device=dev).manual_seed(0),
@@ -1403,6 +1490,28 @@ def phase_times(dev):
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)
+    # the two launches of a chunk at Table III's 1,024 lanes, the lanes' rows
+    # drawn evenly over the rows and the drop row
+    rows = []
+    for name, (r, c) in ORDERED_ROWS.items():
+        dst, idx, src = ordered_inputs(rng, r, c, ORDERED_TIME_LANES, dev)
+        ms, host_ms = time_launches(lambda: ordered_scatter_add(dst, idx, src))
+        plain, plain_host_ms = time_launches(lambda: ordered_scatter_add_plain(dst, idx, src))
+        ext = torch.cat([dst, dst.new_zeros((1, c))])
+        # the yardstick, never called by the port: one index_add_ on CUDA (atomic adds,
+        # in no fixed order), out of place into dst with its drop row
+        lib_ms, lib_host_ms = time_launches(lambda: torch.index_add(ext, 0, idx, src))
+        bytes_, flops = ordered_cost(dst, idx, src)
+        bnd, by = bound_ms(bytes_, flops)
+        rows.append(dict(ms=ms, plain_ms=plain, bytes=bytes_, flops=flops, library_ms=lib_ms))
+        emit("times", kernel="ordered_scatter_add", rows=[r, c], lanes=ORDERED_TIME_LANES,
+             ms=ms, host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
+             flops=flops, bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms,
+             library="torch.index_add (CUDA atomics, no fixed order)", library_ms=lib_ms,
+             library_host_ms=lib_host_ms)
+    out["ordered_scatter_add"] = dict(
+        _mean_row([{k: v for k, v in r.items() if k != "library_ms"} for r in rows]),
+        library_ms=sum(r["library_ms"] for r in rows) / len(rows))
     out["flash_granite"] = time_flash_bf16(rng, floor_ms, FLASH_GRANITE)
     out["flash_mla"] = time_flash_bf16(rng, floor_ms, FLASH_MLA)
     for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP_FAMILIES.items()):
@@ -1713,7 +1822,7 @@ def train_run(dev, cfg, smi, phase="train"):
           f"non-finite loss or grad norm: {records}")
     check(all(r["flash_launches"] == per_step for r in records)
           and n == {"flash_attention_fwd": per_step * TRAIN_STEPS, "tiered_decode_partial": 0,
-                    "quantize_pages": 0},
+                    "quantize_pages": 0, "ordered_scatter_add": 0},
           f"flash launches per step {[r['flash_launches'] for r in records]}, total {n}")
     specs = registry.get_api(cfg).specs()
     check(all(t.dtype == sp.dtype for t, sp in zip(base.tree_leaves(params),
@@ -1970,7 +2079,8 @@ def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS, phase="moe
     r = timed_serve(moe, cfg, params, prefill, step, {"tokens": tokens}, prompt, steps)
     tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
     n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
-    want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0, "quantize_pages": 0}
+    want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0, "quantize_pages": 0,
+            "ordered_scatter_add": 0}
     check(n_prefill == want and n == want,
           f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
     check(len(r["logits"]) == steps + 1
@@ -2038,10 +2148,14 @@ def phase_mla(dev, smi):
 # sLSTM); zamba2 10 layers (one shared-attention application after layer 9,
 # then a tail layer without). (b): whisper's 416-token prompt and 32 steps are
 # 448 positions, its published decoder context
+# (b)'s prompt of the recurrent families: a host-issued step per token, so
+# their prefill's time is linear in it (~4 ms a token at batch 4); 1,024 of
+# the published 2,048 halve it and leave the per-token cost as measured
+FAM_RECURRENT_PROMPT = 1024
 FAMILIES = {
     "whisper-medium": (whisper_medium.CONFIG, encdec, dict(n_layers=2, n_enc_layers=2), 416),
-    "xlstm-125m": (xlstm_125m.CONFIG, xlstm, dict(n_layers=4), PROMPT),
-    "zamba2-2.7b": (zamba2_2_7b.CONFIG, hybrid, dict(n_layers=10), PROMPT),
+    "xlstm-125m": (xlstm_125m.CONFIG, xlstm, dict(n_layers=4), FAM_RECURRENT_PROMPT),
+    "zamba2-2.7b": (zamba2_2_7b.CONFIG, hybrid, dict(n_layers=10), FAM_RECURRENT_PROMPT),
 }
 FAM_CMP = dict(batch=2, prompt=64, steps=8)  # (a)
 FAM_BATCH, FAM_STEPS = 4, 32  # (b)
@@ -2167,7 +2281,7 @@ def families_serve(dev, smi, arch, seed, batch=FAM_BATCH, steps=FAM_STEPS):
     tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
     n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
     want = {"flash_attention_fwd": flash_per_forward(cfg), "tiered_decode_partial": 0,
-            "quantize_pages": 0}
+            "quantize_pages": 0, "ordered_scatter_add": 0}
     check(n_prefill == want and n == want,
           f"{arch} launches {n_prefill} in the prefill and {n} in the run, want {want}")
     check(len(r["logits"]) == steps + 1
@@ -2255,7 +2369,7 @@ def phase_families(dev, smi, seed):
 # the dry run (launch/dryrun.py) on the card machine, held against real steps
 # --------------------------------------------------------------------------
 DRYRUN_JOBS = 7  # the dry run's processes, one arch each, on the machine's 8 cores
-DRYRUN_CUT_SEQ = 2048  # the recurrent families' train and prefill: one host step per token
+DRYRUN_CUT_SEQ = 1024  # the recurrent families' train and prefill: one host step per token
 DRYRUN_KINDS = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
 RECURRENT = ("ssm", "hybrid")
 # all that the bytes requested from the allocator hold beyond the live
@@ -2496,13 +2610,21 @@ def _ssd_chunks(trace, n=None):
     return ssd_engine.trace_chunks({k: v[:n] for k, v in trace.items()}, "cpu")
 
 
-def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
+# the components of obs_lat_comp that no Lindley prefix sum feeds: held by the
+# strict rule in a lattice run, where lindley_loose loosens the leaf
+NON_LINDLEY = [ssd_obs.COMP_SENSE, ssd_obs.COMP_RETRY, ssd_obs.COMP_XFER, ssd_obs.COMP_REBUILD]
+
+
+def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1, exact=()):
     """The card against the port on the CPU, step by step from the same
     trace (and ``knobs``, a ``RunKnobs`` on the CPU, as a sweep run takes
     them): both states and chunk metrics compared after every ``every``-th
     chunk and the last by the comparison rule (the first divergence, its
     chunk and leaves, is kept), then both summaries; check_invariants on both
-    final states."""
+    final states. In a lattice run ``obs_lat_comp`` takes ``lindley_loose``
+    but for its NON_LINDLEY components, held strictly. For each state leaf
+    named in ``exact``: whether it was bit-equal at every compared chunk, and
+    its largest relative gap (|card - CPU| / |CPU|) over them."""
     C = torch_ssd_compare
     chunks = _ssd_chunks(trace, n_chunks)
     has_writes = bool((trace["op"][:len(chunks)] == ssd_engine.OP_WRITE).any())
@@ -2514,6 +2636,7 @@ def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
     s_d = ssd_state.init_state(cfg, device=dev, **init)
     first, lattice = None, cfg.chan_model == "lattice" and "arrival_ms" in trace
     compared = 0
+    gaps = {name: dict(bit_equal=True, max_rel_gap=0.0) for name in exact}
     for c, req in enumerate(chunks):
         s_c, y_c = ssd_engine.step_chunk(s_c, req, cfg, has_writes, knobs)
         s_d, y_d = ssd_engine.step_chunk(s_d, tuple(x.to(dev) for x in req), cfg, has_writes,
@@ -2526,15 +2649,92 @@ def ssd_lockstep(cfg, trace, n_chunks, dev, knobs=None, every=1):
             bad = (C.compare_leaves(ssd_state.SSDState._fields, s_c, s_d, loose=loose)
                    + C.compare_leaves(ssd_engine.ChunkMetrics._fields, y_c, y_d,
                                       where="metrics."))
+            if lattice and s_c.obs_lat_comp.numel():
+                bad += C.compare_leaves(["obs_lat_comp (non-Lindley components)"],
+                                        [s_c.obs_lat_comp[:, NON_LINDLEY]],
+                                        [s_d.obs_lat_comp[:, NON_LINDLEY]])
             if bad:
                 first = dict(chunk=c, leaves=bad[:6])
+        for name, g in gaps.items():
+            a, b = getattr(s_c, name), getattr(s_d, name).cpu()
+            g["bit_equal"] &= torch.equal(a, b)
+            if a.numel():
+                rel = (a - b).abs() / a.abs().clamp_min(1e-30)
+                g["max_rel_gap"] = max(g["max_rel_gap"], float(rel.max()))
     ssd_state.check_invariants(s_c, cfg, "cpu")
     ssd_state.check_invariants(s_d, cfg, "card")
     loose = C.lindley_loose(s_c.obs_lat_mode.numpy()) if lattice else {}
     summ_c, summ_d = ssd_engine.summarize(s_c, cfg), ssd_engine.summarize(s_d, cfg)
     bad_summary = C.compare_summaries(summ_c, summ_d, loose=loose)
     return dict(chunks=len(chunks), compared=compared, first_divergence=first,
-                summary_mismatches=bad_summary), summ_d
+                summary_mismatches=bad_summary, exact=gaps), summ_d
+
+
+# (d) tests/test_torch_wearout.py::TestParityRebuild's cell: the tiny
+# geometry, Baseline, worn (P/E 900), obs_level "full", read failures with
+# parity rebuild; 8,192 zipf-1.2 reads, chunks of 128, the legacy channel model
+PARITY_REBUILD = dict(policy=ssd_geometry.BASELINE, initial_pe=900, obs_level="full",
+                      max_read_retries=2, read_fail_rate=0.01, fault_seed=1,
+                      parity_rebuild=True)
+PARITY_REBUILD_READS = 8_192
+OBS_SUMS = ("obs_ts", "obs_lat_comp")  # the float sums of ops.at_add_in_order
+
+
+def one_hot_sums(dst, idx, src):
+    """The card's obs sums before the ordered kernel, kept to measure what it
+    repairs: each row's lanes summed through one-hot masks (``segment_sum``),
+    then added into ``dst``; the CPU's lane order unchanged."""
+    if dst.device.type == "cpu":
+        return ordered_scatter_add_plain(dst, port_ops.drop_index(idx, dst.shape[0]).reshape(-1),
+                                         port_ops._rows(src, idx, dst))
+    n = dst.shape[0]
+    return dst + port_ops.segment_sum(port_ops._rows(src, idx, dst),
+                                      port_ops.drop_index(idx, n).reshape(-1), n)
+
+
+def ssd_parity_rebuild(dev):
+    """(d) in lockstep, card against CPU, every chunk by the strict rule, with
+    ``obs_ts`` and ``obs_lat_comp`` bit for bit; 2 ordered_scatter_add
+    launches a chunk on the card (obs "full") and none on the CPU. First the
+    same run with the card's former one-hot sums (``one_hot_sums``), whose
+    largest gaps in those two leaves are measured and not held."""
+    cfg = ssd_geometry.tiny_config(**PARITY_REBUILD)
+    check(cfg.chan_model == "legacy" and cfg.chunk == 128,
+          f"(d) expects the legacy channel model and chunks of 128: {cfg.chan_model}, {cfg.chunk}")
+    trace = ssd_workload.zipf_read_trace(cfg, PARITY_REBUILD_READS, 1.2, seed=1)
+    real = port_ops.at_add_in_order
+    port_ops.at_add_in_order = one_hot_sums
+    try:
+        n0 = ordered_scatter_add.launches
+        before, _ = ssd_lockstep(cfg, trace, None, dev, exact=OBS_SUMS)
+        check(ordered_scatter_add.launches == n0, "(d) the one-hot run reached the kernel")
+    finally:
+        port_ops.at_add_in_order = real
+    n0, t0 = ordered_scatter_add.launches, time.perf_counter()
+    cmp, summ = ssd_lockstep(cfg, trace, None, dev, exact=OBS_SUMS)
+    wall, launches = time.perf_counter() - t0, ordered_scatter_add.launches - n0
+    check(cmp["first_divergence"] is None and not cmp["summary_mismatches"],
+          f"(d) the card diverges from the CPU: {cmp}")
+    check(all(g["bit_equal"] for g in cmp["exact"].values()),
+          f"(d) obs sums not bit-equal to the CPU's: {cmp['exact']}")
+    check(launches == 2 * cmp["chunks"], f"(d) {launches} ordered_scatter_add launches "
+          f"for {cmp['chunks']} chunks at obs_level full")
+    check(summ["rebuilds"] > 0, f"(d) no parity rebuild fired: {summ['rebuilds']}")
+    # one launch a chunk at obs_level "counters" (the time series only)
+    n0 = ordered_scatter_add.launches
+    ssd_engine.run(replace(cfg, obs_level="counters"),
+                   {k: v[:4] for k, v in trace.items()}, device=dev)
+    check(ordered_scatter_add.launches - n0 == 4,
+          f"(d) {ordered_scatter_add.launches - n0} launches for 4 chunks at obs_level counters")
+    return dict(run="d_baseline_parity_rebuild_tiny", n_blocks=cfg.n_blocks, chunk=cfg.chunk,
+                chunks=cmp["chunks"], requests=PARITY_REBUILD_READS, chan_model=cfg.chan_model,
+                obs_level=cfg.obs_level, rebuilds=summ["rebuilds"],
+                uncorrectable_reads=summ["uncorrectable_reads"],
+                ordered_scatter_add_launches=launches, launches_per_chunk=launches / cmp["chunks"],
+                card_vs_cpu=cmp, lockstep_wall_s=wall,
+                one_hot_before=dict(exact=before["exact"],
+                                    first_divergence=before["first_divergence"],
+                                    summary_mismatches=before["summary_mismatches"]))
 
 
 def phase_ssd(dev):
@@ -2547,10 +2747,13 @@ def phase_ssd(dev):
             ssd_engine.run(cfg, {k: v[:2] for k, v in trace.items()}, device=dev)
             torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
+        n0, t0 = ordered_scatter_add.launches, time.perf_counter()
         s, m = ssd_engine.run(cfg, trace, device=dev)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall, ordered = time.perf_counter() - t0, ordered_scatter_add.launches - n0
+        per_chunk = {"off": 0, "counters": 1, "full": 2}[cfg.obs_level]
+        check(ordered == per_chunk * n_chunks, f"{name}: {ordered} ordered_scatter_add launches "
+              f"over {n_chunks} chunks at obs_level {cfg.obs_level}")
         peak = torch.cuda.max_memory_allocated()
         check(s.clock_ms.device.type == "cuda", f"{name}: the state is not on the card")
         ssd_state.check_invariants(s, cfg, name)
@@ -2593,6 +2796,7 @@ def phase_ssd(dev):
              n_logical=cfg.n_logical, chunk=cfg.chunk, chunks=n_chunks,
              requests=int(trace["lpn"].size), open_loop="arrival_ms" in trace,
              chan_model=cfg.chan_model, obs_level=cfg.obs_level,
+             ordered_scatter_add_launches=ordered,
              **{k: summ[k] for k in ("iops", "retries_per_read", "capacity_loss_gib",
                                      "migrated_pages", "erases", "read_lat_p99_us")},
              faults={k: summ[k] for k in ("uncorrectable_reads", "prog_fails", "erase_fails",
@@ -2606,6 +2810,7 @@ def phase_ssd(dev):
                           top_device_ms=top(device_ms, 1, 6),
                           top_host_inclusive_ms=top(cpu_ms, 1, 6)),
              card_vs_cpu=cmp)
+    emit("ssd", **ssd_parity_rebuild(dev))
     b, h, r = (out[f"a_{n}"] for n in ("baseline", "hotness", "raro"))
     emit("ssd", quickstart_ratios=dict(
         raro_over_baseline_iops=r["iops"] / b["iops"],
@@ -3271,6 +3476,173 @@ def parallel_tp(dev, cfg, smi):
     return line, sum(r["f2"]["launches"]["flash_attention_fwd"] for r in ranks)
 
 
+# (h): MoE over two data ranks, two processes on the card over gloo as in
+# (f), on the (2, 1) mesh: granite-moe-3b-a800m at its published widths cut to
+# 2 MoE layers, f32, capacity factor 0.5 (tokens drop), 2 x 256 tokens a rank,
+# against one process on the whole batch (4 x 256): moe.moe_apply takes the
+# capacity, the drops and the aux loss over the global batch.
+MOE_DP = dict(n_layers=2, capacity_factor=0.5, batch=4, seq=256, steps=2)
+MOE_DP_TOL = dict(loss=1e-5, grads_of_max=1e-5)
+
+
+def moe_dp_cfg():
+    return granite_moe_3b_a800m.CONFIG.with_(
+        n_layers=MOE_DP["n_layers"], capacity_factor=MOE_DP["capacity_factor"],
+        dtype=torch.float32)
+
+
+@contextlib.contextmanager
+def counted_drops(drops):
+    """While active, each ``moe._slots`` call appends to ``drops`` the number
+    of assignments it drops (slots at its buffer's end)."""
+    real = moe._slots
+
+    def slots(dest, n_dest, cap, before=None, rows=None):
+        out = real(dest, n_dest, cap, before, rows)
+        drops.append(int((out == n_dest * (cap if rows is None else rows)).sum()))
+        return out
+
+    moe._slots = slots
+    try:
+        yield
+    finally:
+        moe._slots = real
+
+
+def moe_dp_steps(dev, mesh=None):
+    """(h) on this rank of ``mesh`` (None: one process on the whole batch):
+    MOE_DP["steps"] make_train_step steps from parameters drawn on the card
+    from seed 0, each timed between two synchronizes with its flash launches,
+    (on a mesh) the host ms inside gloo's all-reduces and all-gathers; the
+    loss, the grad norm, the dropped assignments of each MoE layer's forward
+    (remat recomputes each once more) and the first step's gradients (on the
+    CPU), as ``optim.update`` receives them. The first step pays one-time
+    costs (cuBLAS's handles, the kernels' loads), so times are read off the
+    last."""
+    cfg = moe_dp_cfg()
+    params = base.materialize(registry.get_api(cfg).specs(),
+                              torch.Generator(device=dev).manual_seed(0), dtype=torch.float32,
+                              device=dev)
+    opt = optim.init(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MOE_DP["seq"],
+                                  global_batch=MOE_DP["batch"]))
+    shard, n_shards = (0, 1) if mesh is None else (mesh.axis_index("data"), mesh.shape["data"])
+    rows = train.data_rows(MOE_DP["batch"], shard, n_shards)
+    step = train_step.make_train_step(cfg, optim.AdamWConfig(lr=1e-3), 1, mesh)
+    seen, real_update = [], optim.update
+
+    def update(ocfg, p, grads, *a):
+        if not seen:
+            seen.append({k: v.detach().cpu() for k, v in base.tree_paths(grads).items()})
+        return real_update(ocfg, p, grads, *a)
+
+    out = dict(losses=[], grad_norms=[], step_ms=[], gloo_ms=[], flash_launches=[], drops=[])
+    coll = {}
+    optim.update = update
+    try:
+        with set_mesh(mesh), (timed_collectives(coll) if mesh is not None
+                              else contextlib.nullcontext()):
+            for i in range(MOE_DP["steps"]):
+                batch = {k: torch.from_numpy(v[rows]).to(dev)
+                         for k, v in data.batch_at(i).items()}
+                drops = []
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with counted_drops(drops):
+                    params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["gloo_ms"].append(sum(v["ms"] for v in coll.values()) - sum(out["gloo_ms"]))
+                out["flash_launches"].append(flash_attention_fwd.launches)
+                out["losses"].append(float(metrics["loss"]))
+                out["grad_norms"].append(float(metrics["grad_norm"]))
+                out["drops"].append(drops[:MOE_DP["n_layers"]])
+    finally:
+        optim.update = real_update
+    out.update(grads=seen[0], collectives=coll)
+    return out
+
+
+def _moe_dp_rank(rank, world, rendezvous, out_dir):
+    """One rank of (h), in a process of its own on the card: a gloo group from
+    a file:// rendezvous, the (world, 1) mesh over it, ``moe_dp_steps``, each
+    gradient leaf held against the one process's (saved by the parent)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = init_distributed("cuda:0", init_method=f"file://{rendezvous}", rank=rank,
+                           world_size=world, backend="gloo")
+    try:
+        res = moe_dp_steps(dev, make_mesh((world, 1), ("data", "model"), dev))
+        want = torch.load(out_dir / "one_grads.pt")
+        got = res.pop("grads")
+        check(got.keys() == want.keys(), "(h) the gradient leaves differ")
+        res["grads_of_max"] = {k: float((got[k] - w).abs().max() / w.abs().max())
+                               for k, w in want.items()}
+        res["backend"] = dist.get_backend()
+        torch.save(res, out_dir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_moe_dp(dev, smi):
+    """(h) granite's MoE training step over two data ranks on the card against
+    one process on the whole batch: the first step's loss within
+    MOE_DP_TOL["loss"], each gradient leaf within MOE_DP_TOL["grads_of_max"]
+    of its largest entry, the grad norms as the loss, assignments dropped
+    (the ranks' drops adding up to the one process's). Returns its line and
+    the flash launches of the ranks' steps."""
+    one = moe_dp_steps(dev)
+    dp_dir = PARALLEL_DIR / "moe_dp"
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    dp_dir.mkdir(parents=True)
+    torch.save(one.pop("grads"), dp_dir / "one_grads.pt")
+    torch.cuda.empty_cache()
+    wall_s = spawn_ranks(_moe_dp_rank, (TP_WORLD, dp_dir / "rendezvous", dp_dir), TP_TIMEOUT_S,
+                         "(h)")
+    ranks = [torch.load(dp_dir / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    t = MOE_DP_TOL
+    loss_err = abs(ranks[0]["losses"][0] - one["losses"][0]) / abs(one["losses"][0])
+    norm_err = abs(ranks[0]["grad_norms"][0] - one["grad_norms"][0]) / one["grad_norms"][0]
+    grad_err = max(max(r["grads_of_max"].values()) for r in ranks)
+    rank_drops = [sum(r["drops"][0][i] for r in ranks) for i in range(MOE_DP["n_layers"])]
+    check(all(r["losses"] == ranks[0]["losses"] for r in ranks),
+          f"(h) the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    check(loss_err <= t["loss"] and norm_err <= t["loss"],
+          f"(h) loss {ranks[0]['losses'][0]} vs one process {one['losses'][0]}, grad norm "
+          f"{ranks[0]['grad_norms'][0]} vs {one['grad_norms'][0]}")
+    check(grad_err <= t["grads_of_max"], f"(h) gradients {grad_err} of a leaf's largest entry")
+    check(min(one["drops"][0]) > 0 and rank_drops == one["drops"][0],
+          f"(h) dropped assignments: ranks {rank_drops}, one process {one['drops'][0]}")
+    per_step = 2 * MOE_DP["n_layers"]  # the forward, and remat's recompute in the backward
+    check(all(r["flash_launches"] == [per_step] * MOE_DP["steps"] for r in (one, *ranks)),
+          f"(h) flash launches {[r['flash_launches'] for r in (one, *ranks)]}")
+    worst = max(ranks, key=lambda r: max(r["grads_of_max"].values()))["grads_of_max"]
+    coll = [r["collectives"] for r in ranks]
+    line = dict(
+        arch=moe_dp_cfg().arch, n_layers=MOE_DP["n_layers"], dtype="float32",
+        capacity_factor=MOE_DP["capacity_factor"], mesh=dict(data=TP_WORLD, model=1),
+        backend=ranks[0]["backend"], device="one card, both ranks on cuda:0",
+        tokens_per_rank=[MOE_DP["batch"] // TP_WORLD, MOE_DP["seq"]],
+        capacity=dict(global_batch=moe.capacity(moe_dp_cfg(), MOE_DP["batch"] * MOE_DP["seq"]),
+                      one_rank_alone=moe.capacity(moe_dp_cfg(),
+                                                  MOE_DP["batch"] * MOE_DP["seq"] // TP_WORLD)),
+        dropped_assignments=dict(one_process=one["drops"][0],
+                                 ranks=[r["drops"][0] for r in ranks]),
+        losses=dict(one_process=one["losses"], ranks=ranks[0]["losses"]),
+        loss_rel_err=loss_err, grad_norm_rel_err=norm_err, grads_max_of_leaf_max=grad_err,
+        worst_leaf=max(worst, key=worst.get), tol=t,
+        step_ms=dict(one_process=one["step_ms"], ranks=[r["step_ms"] for r in ranks]),
+        gloo=[dict(calls={name: v["calls"] for name, v in c.items()}, ms_per_step=r["gloo_ms"],
+                   share_of_last_step=r["gloo_ms"][-1] / r["step_ms"][-1])
+              for c, r in zip(coll, ranks)],
+        flash_launches_per_step=per_step, spawn_to_end_s=wall_s, nvidia_smi=smi,
+        note="two ranks share one card and gloo copies every collective through the host: "
+             "these times are not data-parallel speed")
+    return line, sum(sum(r["flash_launches"]) for r in ranks)
+
+
 # (g): tensor parallelism of the other families' training steps on the same
 # (1, 2) mesh, two processes on the card over gloo as in (f): whisper-medium
 # (encdec), deepseek-v3-671b (MLA, with its dense-first layers and MTP),
@@ -3281,16 +3653,16 @@ def parallel_tp(dev, cfg, smi):
 # (3.36 B parameters), (g1) one dense layer and MTP; the MoE layers' placement
 # with MLA is held on the CPU (tests/test_torch_tensor_parallel_families.py).
 # The recurrent families run no remat: (g2) cuts zamba2 to 9 layers (one
-# application of the shared block) and both to short sequences, which the dry
-# run puts at 14.5 GB (xlstm, 1 x 256) and 14.0 GB (zamba2, 1 x 512) on one
-# card; their per-token recurrences are host loops.
+# application of the shared block) and both to short sequences (xlstm 1 x 128,
+# zamba2 1 x 256; their per-token recurrences are host loops, whose time grows
+# with the tokens and shows nothing more at 256 and 512).
 TPF = {
     "whisper-medium": (whisper_medium.CONFIG, dict(n_layers=2, n_enc_layers=2), (2, 64), {},
                        (2, 416)),
     "deepseek-v3-671b": (deepseek_v3_671b.CONFIG, dict(n_layers=1, first_k_dense=1), (2, 256),
                          dict(n_layers=3, first_k_dense=3), (1, PROMPT)),
-    "xlstm-125m": (xlstm_125m.CONFIG, dict(n_layers=4), (2, 64), {}, (1, 256)),
-    "zamba2-2.7b": (zamba2_2_7b.CONFIG, dict(n_layers=10), (2, 64), dict(n_layers=9), (1, 512)),
+    "xlstm-125m": (xlstm_125m.CONFIG, dict(n_layers=4), (2, 64), {}, (1, 128)),
+    "zamba2-2.7b": (zamba2_2_7b.CONFIG, dict(n_layers=10), (2, 64), dict(n_layers=9), (1, 256)),
 }
 TPF_STEPS = 2  # steps of each (g1) and (g2) run
 TPF_TIMEOUT_S = 600
@@ -3576,12 +3948,15 @@ def phase_parallel(dev, cfg, smi):
     tp_line, tp_launches = parallel_tp(dev, cfg, smi)
     wall["f"], t0 = time.perf_counter() - t0, time.perf_counter()
     tpf_line, tpf_launches = parallel_tp_families(dev, smi)
-    wall["g"] = time.perf_counter() - t0
+    wall["g"], t0 = time.perf_counter() - t0, time.perf_counter()
+    moe_dp_line, moe_dp_launches = parallel_moe_dp(dev, smi)
+    wall["h"] = time.perf_counter() - t0
     emit("parallel", nvidia_smi=smi, backend=backend, world=1, mesh=dict(data=1, model=1),
          group_start_s=start_s, b_train=train_line, c_moe_apply_ep=ep,
          d_compressed_allreduce=compressed, e_sweep_two_entries=sweep_line, f_tp=tp_line,
-         g_tp_families=tpf_line, wall_s=dict(wall, phase=time.perf_counter() - t_phase))
-    return n, tp_launches, tpf_launches
+         g_tp_families=tpf_line, h_moe_data_parallel=moe_dp_line,
+         wall_s=dict(wall, phase=time.perf_counter() - t_phase))
+    return n, tp_launches, tpf_launches, moe_dp_launches
 
 
 def _mean_row(rows):
@@ -3591,7 +3966,20 @@ def _mean_row(rows):
     return dict(ms=mean["ms"], plain_ms=mean["plain_ms"], bound_ms=bnd, bound_by=by)
 
 
+PHASE_SECONDS: dict = {}
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, then one line with the phase's name and wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(json.dumps({"phase_seconds": {"name": name, "s": PHASE_SECONDS[name]}}), flush=True)
+    return out
+
+
 def main():
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="device, build, and each kernel against plain at full width only "
@@ -3601,54 +3989,67 @@ def main():
                     help="numpy seed of the families phase's frames and tokens")
     a = ap.parse_args()
 
-    smi = phase_device()
+    smi = timed("device", phase_device)
     dev = torch.device("cuda")
-    phase_build()
-    errs = {"tiered_decode_partial": check_partial(dev, a.quick),
-            "quantize_pages": check_quant(dev, a.quick),
-            "flash_attention_fwd": check_flash(dev, a.quick)}
+    timed("build", phase_build)
+    errs = timed("kernels", lambda: {
+        "tiered_decode_partial": check_partial(dev, a.quick),
+        "quantize_pages": check_quant(dev, a.quick),
+        "flash_attention_fwd": check_flash(dev, a.quick),
+        "ordered_scatter_add": check_ordered(dev, a.quick)})
     emit("kernels", max_abs_err=errs)
     if not a.quick:
         cfg = tinyllama_1_1b.CONFIG
-        phase_path(dev)
-        phase_prefill_path(dev)
-        phase_syncs(dev, cfg)
-        runs = phase_serve(dev, cfg, STEPS, 4)
+        timed("path", phase_path, dev)
+        timed("prefill_path", phase_prefill_path, dev)
+        timed("syncs", phase_syncs, dev, cfg)
+        runs = timed("serve", phase_serve, dev, cfg, STEPS, 4)
         launches = {k: runs[True][k] for k in ("tiered_decode_partial", "quantize_pages")}
         # quantize_pages' main paths: the RARO serve run and the controller's cases
         store_by_path = {"serve_raro": launches["quantize_pages"],
-                         "policy": phase_policy(dev, cfg)["quantize_pages"]}
+                         "policy": timed("policy", phase_policy, dev, cfg)["quantize_pages"]}
         launches["quantize_pages"] = sum(store_by_path.values())
-        prefill_launches = phase_prefill(dev, cfg)["flash_attention_fwd"]
-        times = phase_times(dev)  # before the profiler, whose cost outlasts its window
-        phase_profile(dev, cfg)
-        phase_profile_prefill(dev, cfg)
-        train_launches, train_attention = phase_train(dev, cfg, smi)
-        moe_launches = phase_moe(dev, smi)
-        mla_launches, mla_entry = phase_mla(dev, smi)
-        family_launches, whisper_entry = phase_families(dev, smi, a.seed)
-        dryrun_launches = phase_dryrun(dev, smi)
-        _, ssd_states = phase_ssd(dev)
-        phase_sweep(dev, *ssd_states["b_raro_lattice_openloop_50k"])
-        parallel_launches, tp_launches, tpf_launches = phase_parallel(dev, cfg, smi)
+        prefill_launches = timed("prefill", phase_prefill, dev, cfg)["flash_attention_fwd"]
+        # before the profiler, whose cost outlasts its window
+        times = timed("times", phase_times, dev)
+        timed("profile", phase_profile, dev, cfg)
+        timed("profile_prefill", phase_profile_prefill, dev, cfg)
+        train_launches, train_attention = timed("train", phase_train, dev, cfg, smi)
+        moe_launches = timed("moe", phase_moe, dev, smi)
+        mla_launches, mla_entry = timed("mla", phase_mla, dev, smi)
+        family_launches, whisper_entry = timed("families", phase_families, dev, smi, a.seed)
+        dryrun_launches = timed("dryrun", phase_dryrun, dev, smi)
+        # ordered_scatter_add's main path: the simulator's obs sums in the ssd phase
+        reset_counts()
+        _, ssd_states = timed("ssd", phase_ssd, dev)
+        launches["ordered_scatter_add"] = counts()["ordered_scatter_add"]
+        timed("sweep", phase_sweep, dev, *ssd_states["b_raro_lattice_openloop_50k"])
+        parallel_launches, tp_launches, tpf_launches, moe_dp_launches = timed(
+            "parallel", phase_parallel, dev, cfg, smi)
         # flash attention's main paths: tinyllama's prefill (f32) and training
         # (bf16), granite's prefill and training (bf16), deepseek-v3's MLA
         # prefill (bf16), whisper's prefill (bf16: encoder, decoder and cross)
         # and training step (f32, 2 + 2 layers), the dry run's cells (bf16),
         # tinyllama's training on the one-rank mesh (bf16), and on the (1, 2)
-        # mesh, tensor-parallel, both ranks' launches (bf16); and whisper's and
-        # deepseek-v3's training there, both ranks' launches (f32 and bf16)
+        # mesh, tensor-parallel, both ranks' launches (bf16); whisper's and
+        # deepseek-v3's training there, both ranks' launches (f32 and bf16);
+        # and granite's MoE step over two data ranks, both ranks' launches (f32)
         by_path = {"prefill": prefill_launches, "train": train_launches["flash_attention_fwd"],
                    **moe_launches, "mla_prefill": mla_launches,
                    "whisper_prefill": family_launches["whisper-medium"],
                    "whisper_train": family_launches["whisper_train"],
                    "dryrun_cells": dryrun_launches["flash_attention_fwd"],
                    "parallel_train": parallel_launches["flash_attention_fwd"],
-                   "parallel_tp": tp_launches, "parallel_tp_families": tpf_launches}
+                   "parallel_tp": tp_launches, "parallel_tp_families": tpf_launches,
+                   "parallel_moe_data_parallel": moe_dp_launches}
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
         extra = {"quantize_pages": dict(launches_by_path=store_by_path),
+                 "ordered_scatter_add": dict(
+                     launches_by_path={"ssd": launches["ordered_scatter_add"]},
+                     launches_per_chunk={"full": 2, "counters": 1, "off": 0},
+                     library="torch.index_add on CUDA (atomic adds, no fixed order)"),
                  "flash_attention_fwd": dict(
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
                 dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}),
@@ -3669,6 +4070,10 @@ def main():
                  bound_by=times[k]["bound_by"], library_ms=times[k].get("library_ms"),
                  **extra.get(k, {}))
             for k in KERNELS]}), flush=True)
+        check(all(launches[k] > 0 for k in KERNELS), f"a kernel was never launched: {launches}")
+    print(json.dumps({"phase_seconds_total": dict(PHASE_SECONDS,
+                                                  total_s=time.perf_counter() - t_start)}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -21,6 +21,7 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -46,6 +47,20 @@ def _data_shard(mesh) -> tuple[int, int]:
     return index, count
 
 
+def data_rows(batch: int, shard: int, n_shards: int, microbatches: int = 1) -> np.ndarray:
+    """Data rank ``shard``'s rows (of ``n_shards``) of a global batch of
+    ``batch`` rows: its contiguous share of each of the ``microbatches``
+    blocks the reference's step splits the global batch into along axis 0,
+    so that microbatch j of every rank's step is its part of the
+    reference's microbatch j (one block: the rank's contiguous rows)."""
+    if batch % (microbatches * n_shards):
+        raise ValueError(f"batch {batch} does not split into {microbatches} microbatches "
+                         f"over {n_shards} data ranks")
+    per, block = batch // (microbatches * n_shards), batch // microbatches
+    return np.concatenate([np.arange(j * block + shard * per, j * block + (shard + 1) * per)
+                           for j in range(microbatches)])
+
+
 def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
         seq: int = 128, microbatches: int = 1, ckpt_dir: str | None = None,
         ckpt_interval: int = 100, lr: float = 1e-3, log_every: int = 20,
@@ -61,8 +76,9 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     ``mesh`` (a ``launch.mesh.ProcessMesh``; its device is the run's) trains
     over its axes; without one inside a started process group, the
     reference's (world, 1) ("data", "model") mesh. Every rank draws the same
-    parameters, takes its contiguous rows of each global batch (``batch``
-    must divide by the data axes), and each step averages the gradients and
+    parameters, takes its rows of each global batch (``data_rows``: its
+    contiguous share of each microbatch's block; ``batch`` must divide by
+    the microbatches times the data ranks), and each step averages the gradients and
     the loss over them in one all-reduce (``train_step.make_train_step``);
     ``hist`` holds the global mean loss.
 
@@ -88,8 +104,6 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
         if device is not None and torch.device(device).type != dev.type:
             raise ValueError(f"device {device} is not the mesh's ({dev})")
         shard, n_shards = _data_shard(mesh)
-        if batch % n_shards:
-            raise ValueError(f"batch {batch} does not split over {n_shards} data ranks")
     writer = mesh is None or dist.get_rank() == 0
     if cfg is None:
         cfg = smoke_variant(ARCHS[arch]) if smoke else ARCHS[arch]
@@ -102,7 +116,7 @@ def run(arch: str, *, smoke: bool = True, steps: int = 300, batch: int = 16,
     opt_state = optim.init(params)
 
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch))
-    rows = slice(shard * batch // n_shards, (shard + 1) * batch // n_shards)
+    rows = data_rows(batch, shard, n_shards, microbatches)
     step_fn = ts.make_train_step(cfg, ocfg, microbatches=microbatches, mesh=mesh)
 
     mgr = (CheckpointManager(ckpt_dir, interval=ckpt_interval, cfg=cfg, mesh=mesh)

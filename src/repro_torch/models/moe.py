@@ -31,6 +31,7 @@ kernel on the card; ``decode_step`` keeps the dense ``decode_attention``
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import ops
@@ -63,13 +64,18 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return -(-c // 8) * 8  # pad for tiling
 
 
-def _slots(dest, n_dest: int, cap: int):
+def _slots(dest, n_dest: int, cap: int, before=None, rows: int | None = None):
     """Capacity slots of a sort-based dispatch. ``dest`` holds each
     assignment's destination in ``[0, n_dest)`` (``n_dest``: none, dropped);
     the assignments are stably sorted by destination and each destination
     keeps its first ``cap``. Returns, in ``dest``'s layout, each one's slot
     ``dest * cap + rank`` (``n_dest * cap`` where it is dropped). No step
-    reads a value back to the host."""
+    reads a value back to the host.
+
+    ``before`` (n_dest,) counts each destination's assignments that come
+    ahead of these in a global order (those of lower data ranks): an
+    assignment is kept only while ``before + rank < cap``, and its slot is
+    ``dest * rows + rank`` in a buffer of ``rows`` per destination."""
     flat = dest.reshape(-1).long()
     order = torch.argsort(flat, stable=True)
     sorted_d = flat[order]
@@ -77,8 +83,10 @@ def _slots(dest, n_dest: int, cap: int):
     rank = (torch.arange(flat.shape[0], device=flat.device)
             - seg[torch.clamp(sorted_d, max=n_dest - 1)])
     pos = torch.empty_like(order).scatter_(0, order, rank)
-    keep = (flat < n_dest) & (pos < cap)
-    return torch.where(keep, flat * cap + pos, n_dest * cap).reshape(dest.shape)
+    rows = cap if rows is None else rows
+    ahead = 0 if before is None else before[torch.clamp(flat, max=n_dest - 1)]
+    keep = (flat < n_dest) & (pos + ahead < cap)
+    return torch.where(keep, flat * rows + pos, n_dest * rows).reshape(dest.shape)
 
 
 def _route(xf, router, k: int):
@@ -115,6 +123,14 @@ def _combine(rows, slot, w, order):
     return y
 
 
+def _data_group():
+    """The data group of the mesh that ``launch.mesh.set_mesh`` made
+    ambient, if it joins more than one rank; else None (no mesh, an abstract
+    one, or one data rank), where ``moe_apply`` sees the whole batch."""
+    g = getattr(get_mesh(), "data_group", None)
+    return g if g is not None and dist.get_world_size(g) > 1 else None
+
+
 def moe_apply(p, x, cfg: ModelConfig):
     """x: (B, S, D) -> (out, aux_loss).
 
@@ -122,6 +138,15 @@ def moe_apply(p, x, cfg: ModelConfig):
     probabilities, and the stable sort keeps each expert's assignments in
     token order, so the capacity drop removes exactly the reference's. No
     step reads a value back to the host (``capacity`` comes from the shapes).
+
+    Over a mesh's data ranks (each passing its contiguous rows of the global
+    batch) the layer computes the reference's function of the global batch:
+    the capacity from the global token count, each expert's kept
+    assignments its first C in global token order (this rank's offset by
+    the lower data ranks' counts, one all-gather), and the aux loss from
+    ``me`` and ``ce`` averaged over the data ranks (``pmean`` with
+    ``partial``: the step's gradient mean completes their cotangent). A
+    rank holds at most ``min(C, n)`` rows an expert, its own tokens'.
 
     Expert weights split over "model" (the rules' placement): by experts,
     each rank fills and runs only its experts' capacity rows; by their FFN
@@ -143,6 +168,9 @@ def moe_apply(p, x, cfg: ModelConfig):
     # Switch-style load-balance auxiliary loss (a fixed-order sum, no atomics).
     me = probs.mean(0)
     ce = ops.segment_sum(w.reshape(-1), idx.reshape(-1), e) / n
+    data = _data_group()
+    if data is not None:
+        me, ce = C.pmean(me, data, partial=True), C.pmean(ce, data, partial=True)
     aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
 
     # ---- sort-based dispatch with capacity ----
@@ -150,8 +178,16 @@ def moe_apply(p, x, cfg: ModelConfig):
     # found by the stable sort and carried back, so that each token's row goes
     # to its K slots as one broadcast (whose gradient is a sum over K, where
     # a gather of the row K times would scatter-add it back).
-    cap = capacity(cfg, n)
-    slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
+    if data is None:
+        cap = capacity(cfg, n)
+        slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
+    else:
+        flat = idx.reshape(-1).long()
+        before = C.sum_before(torch.zeros(e, dtype=torch.int64, device=x.device)
+                              .scatter_add_(0, flat, torch.ones_like(flat)), data)
+        glob = capacity(cfg, n * dist.get_world_size(data))
+        cap = min(glob, n)  # a token takes an expert once
+        slot = _slots(idx, e, glob, before, cap)  # (N, K); e*cap: dropped
 
     e_loc = p["w_in"].shape[0]
     e_group = tensor.split_group(e_loc, e)

@@ -11,6 +11,9 @@ Each keeps the reference's semantics where torch's own op would differ:
   ``index_add_`` on floats adds with atomics in an order that changes from
   run to run. Integer sums and every min and max are exact in any order, so
   they use ``index_add_`` and ``scatter_reduce_``;
+- a float scatter-add whose lanes must add in lane order, as the
+  reference's do (``at_add_in_order``), runs the ``ordered_scatter_add``
+  kernel on CUDA;
 - ``top_k`` breaks ties to the lowest index, as ``lax.top_k`` does, by a
   stable descending sort: ``torch.topk`` promises no order among ties.
 
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.ordered_scatter_add.ordered_scatter_add import ordered_scatter_add
 
 
 def recip32(c: float) -> float:
@@ -100,17 +105,15 @@ def at_add(dst, idx, src):
 
 
 def at_add_in_order(dst, idx, src):
-    """``dst.at[idx].add(src, mode="drop")`` along dim 0 for float lanes of
-    unequal size. On the CPU each lane is added into ``dst``'s running value
-    one after another in lane order (``index_add_`` runs serially there), as
-    the reference's scatter-add adds them: its float result bit for bit. On
-    CUDA, where ``index_add_``'s atomic adds take no fixed order, each row's
-    lanes are summed through one-hot masks and then added, the same sums run
-    after run, within float32 rounding of the CPU's."""
-    if dst.device.type == "cpu":
-        return at_add(dst, idx, src)
+    """``dst.at[idx].add(src, mode="drop")`` along dim 0 for float32 lanes of
+    unequal size: each lane is added into ``dst``'s running value one after
+    another in lane order, as the reference's scatter-add adds them, so its
+    float result bit for bit. On CUDA by the ``ordered_scatter_add`` kernel
+    (``index_add_``'s atomic adds there take no fixed order); on the CPU by
+    its plain version, ``index_add_``, which runs serially there."""
     n = dst.shape[0]
-    return dst + segment_sum(_rows(src, idx, dst), drop_index(idx, n).reshape(-1), n)
+    return ordered_scatter_add(dst.contiguous(), drop_index(idx, n).reshape(-1),
+                               _rows(src, idx, dst).contiguous())
 
 
 def _at_reduce(dst, idx, src, how):

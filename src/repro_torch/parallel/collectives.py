@@ -169,6 +169,15 @@ def pmax(x, group):
     return x
 
 
+def sum_before(x, group):
+    """The sum of ``x`` over the ranks of ``group`` before this one (zeros on
+    its first rank), outside autograd: one all-gather. An exclusive prefix
+    sum over the ranks, such as the counts that come before this rank's
+    rows in the global order of a batch split over ``group``."""
+    parts = _gather(x.detach()[None], group, 0)
+    return parts[:dist.get_rank(group)].sum(0)
+
+
 def mean_over(tensors, group):
     """Each of ``tensors``' mean over ``group``, outside autograd, in one
     all-reduce: flattened into one float32 buffer, summed, divided by the

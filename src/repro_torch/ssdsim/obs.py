@@ -14,9 +14,11 @@ accumulator leaves of :class:`repro_torch.ssdsim.state.SSDState`:
 
 ``cfg.obs_level`` "off" runs no observability op and keeps every obs leaf
 zero-length. Float sums of per-read values go through
-``ops.at_add_in_order``: on the CPU each lane is added into the state in
-lane order, as the reference's scatter-adds do; on the card, in a fixed
-order through one-hot masks. Counts add exactly in any order.
+``ops.at_add_in_order``, which adds each lane into the state in lane order,
+as the reference's scatter-adds do: on the card by the
+``ordered_scatter_add`` kernel (``index_add_``'s atomics there take no
+fixed order), on the CPU by ``index_add_``, serial there. Counts add
+exactly in any order.
 Host-side decoders (numpy, on tensors or numpy leaves) are at the bottom.
 """
 
@@ -136,7 +138,7 @@ def record_reads(s, cfg: geometry.SimConfig, *, mode, rd, lat_us, queue_us,
 
     # time series: reads / retries / queue per window of each read's own
     # time. The float sums here add each lane into the state in lane order
-    # on the CPU (ops.at_add_in_order), as the reference's scatter-adds do: a
+    # (ops.at_add_in_order), as the reference's scatter-adds do: a
     # per-chunk sum added afterwards rounds otherwise, and in a cell that
     # collects most reads the difference grows past 1e-5 within a run
     w = torch.where(rd, _window_of(cfg, t_ms).long(), n_win)

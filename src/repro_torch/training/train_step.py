@@ -48,7 +48,10 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
     reference's ``lax.scan``).
 
     With ``mesh`` (a ``launch.mesh.ProcessMesh``), ``batch`` is this rank's
-    share along the data axes, and after the accumulation the step makes one
+    share along the data axes (with microbatches, its part of each of the
+    reference's microbatches in turn: ``launch.train.data_rows``; an MoE
+    layer's capacity and drops are then those of the reference's microbatch
+    over the data ranks, ``moe.moe_apply``), and after the accumulation the step makes one
     all-reduce over them: the gradients' mean and the loss's, the
     reference's deferred psum (none where the data axes hold one rank, whose
     mean is the identity). Every rank then runs the same update. Where

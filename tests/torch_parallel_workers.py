@@ -331,6 +331,47 @@ def tp_case(case, inputs):
                 grads=base.tree_paths(convert.params_to_numpy(grads, cfg, mesh)))
 
 
+def step_grads(cfg, params, batch, microbatches: int, mesh=None) -> dict:
+    """One ``make_train_step`` step under ``set_mesh(mesh)`` (None: one
+    process): its loss, its grad norm and the gradients it hands to
+    ``optim.update``, in the reference's layout (numpy, gathered whole)."""
+    seen = {}
+    real = optim.update
+
+    def update(ocfg, params, grads, *a):
+        seen["grads"] = grads
+        return real(ocfg, params, grads, *a)
+
+    optim.update = update
+    try:
+        with M.set_mesh(mesh):
+            _, _, metrics = ts.make_train_step(cfg, optim.AdamWConfig(), microbatches, mesh)(
+                params, optim.init(params), batch)
+    finally:
+        optim.update = real
+    return dict(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
+                grads=base.tree_paths(convert.params_to_numpy(seen["grads"], cfg, mesh)))
+
+
+def global_batch_steps(case, inputs, microbatches):
+    """``step_grads`` on this rank of a (data, 1) mesh, for each count of
+    ``microbatches``: the case's parameters (``tp_inputs``) and this data
+    rank's rows of its batch as ``launch.train.run`` takes them
+    (``data_rows``)."""
+    from repro_torch.launch.train import data_rows
+
+    cfg = tp_cfg(case)
+    mesh = M.make_mesh(tuple(case["mesh"]), ("data", "model"), "cpu")
+    out = {}
+    for mb in microbatches:
+        params = convert.params_from_numpy(inputs["params"], cfg, "cpu")
+        rows = data_rows(inputs["tokens"].shape[0], mesh.axis_index("data"),
+                         mesh.shape["data"], mb)
+        batch = {k: torch.from_numpy(v[rows]) for k, v in inputs.items() if k != "params"}
+        out[mb] = step_grads(cfg, params, batch, mb, mesh)
+    return out
+
+
 def tp_cases(cases, inputs):
     """Every case of this world's size on this rank, keyed by its name."""
     world = dist.get_world_size()
