@@ -152,7 +152,7 @@ name and wall seconds; their total on the line before the last):
               make_serve_step steps: prefill ms, decode ms per
               step, tokens/s, peak memory, flash launches (exactly 72 per whisper
               prefill, 0 per decode step, 0 for xlstm and zamba2), host syncs of a
-              decode step, a profiled prefill (256 tokens for the recurrent
+              decode step, a profiled prefill (64 tokens for the recurrent
               families, whose per-token work the host issues) and a profiled
               decode step. (c) The flash kernel's autograd entry at whisper's
               encoder (B 4 x 1500 x 1500) and cross (416 x 1500) shapes, non-causal,
@@ -352,7 +352,7 @@ FLASH_MLA_RAGGED = (2, 300, 333, 8, 8, 192, True)
 # whisper-medium's prefill at batch 4, 16 heads of 64 (no GQA): the encoder's
 # self-attention over its 1500 frames, the decoder's causal self-attention over
 # a 416-token prompt, and its cross-attention from the prompt to the frames
-# (Sq != Sk); 1500 and 416 are not multiples of the 64-row tiles
+# (Sq != Sk); 1500 and 416 are not multiples of the kernel's 128-row tiles
 FLASH_WHISPER_ENC = (4, 1500, 1500, 16, 16, 64, False)
 FLASH_WHISPER_DEC = (4, 416, 416, 16, 16, 64, True)
 FLASH_WHISPER_CROSS = (4, 416, 1500, 16, 16, 64, False)
@@ -378,7 +378,7 @@ FLASH_TP_FAMILIES = {"tp2_whisper_enc": (2, 1500, 1500, 8, 8, 64, False),
                      "tp2_whisper_cross": (2, 416, 1500, 8, 8, 64, False),
                      "tp2_mla": (1, PROMPT, PROMPT, 64, 64, 192, True)}
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
-# not multiples of the kernel's 64-row tiles, with GQA and no causal mask
+# not multiples of the kernel's 128-row tiles, with GQA and no causal mask
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
                 (2, 33, 95, 4, 1, 16, False), (1, 257, 300, 2, 2, 128, True),
                 (3, 100, 170, 8, 2, 64, False)]
@@ -702,7 +702,8 @@ def check_flash(dev, full_only):
     so that both round p and each block's P.V at the same points), on both
     layouts it takes; a tail mask (sk_valid < Sk) on the reference's layout."""
     rng = np.random.default_rng(4)
-    cases = [("full", FLASH_FULL, torch.float32), ("granite", FLASH_GRANITE, torch.float32),
+    cases = [("full", FLASH_FULL, torch.float32), ("full", FLASH_FULL, torch.bfloat16),
+             ("granite", FLASH_GRANITE, torch.float32),
              ("granite", FLASH_GRANITE, torch.bfloat16), ("mla", FLASH_MLA, torch.float32),
              ("mla", FLASH_MLA, torch.bfloat16)]
     cases += [(label, shape, dt) for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP.items(),
@@ -1570,7 +1571,10 @@ TRAIN_CMP = dict(n_layers=2, batch=2, seq=256, lr=1e-3)
 # what the two sides' first moments imply, lr * |r(x_card) - r(x_cpu)|, plus
 # 1e-2 lr for the update's own roundings; the moments are held above.
 TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, moments=1e-4, params_of_lr=1e-2)
-FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel")
+# the flash kernels by name: the f32 route's attention kernel and its KV
+# preparation, the bf16 route's one kernel
+FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel",
+                      "flash_attention_bf16_kernel")
 
 
 def numpy_params(cfg, seed):
@@ -2159,7 +2163,10 @@ FAMILIES = {
 }
 FAM_CMP = dict(batch=2, prompt=64, steps=8)  # (a)
 FAM_BATCH, FAM_STEPS = 4, 32  # (b)
-FAM_PROFILE_PROMPT = 256  # (b)'s profiled prefill of xlstm and zamba2 (per-token host loops)
+# (b)'s profiled prefill of xlstm and zamba2: per-token host loops, every
+# token the same step, so 64 tokens show it (256 until PR 27: the profiler
+# took 35-50 s of it on a slow host, near the script's 1,200 s)
+FAM_PROFILE_PROMPT = 64
 
 
 def family_batch(cfg, rng, batch, prompt, labels=False):

@@ -31,11 +31,15 @@ _lib_handle = None
 
 def kernel_block_k(d_qk: int, dtype) -> int:
     """The keys of one KV tile of the kernel at this q/k head dim and dtype
-    (``Cfg::BK`` in csrc/flash_attention.cu): the plain version takes the
-    same ``block_k`` to round p and each block's P·V at the same points."""
+    (``Bf16Cfg::BK`` and ``Cfg::BK`` in csrc/flash_attention.cu): the plain
+    version takes the same ``block_k`` to round p and each block's P·V at
+    the same points. bf16 takes the reference's default of 128 at every
+    pair."""
+    if dtype == torch.bfloat16:
+        return 128
     if d_qk <= 64:
         return 64
-    return 16 if dtype == torch.float32 and d_qk > 128 else 32
+    return 16 if d_qk > 128 else 32
 
 
 def _heads_first(x):
@@ -156,7 +160,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sk_valid: int,
     strides = (ctypes.c_longlong * 12)(*(st for t in views for st in t.stride()[:3]))
     lib = _lib()
     is_bf16 = int(q.dtype == torch.bfloat16)
-    # the KV tiles as the kernel prepares them: split, transposed, in its layout
+    # f32: the KV tiles as the kernel prepares them (split, transposed, in its
+    # layout); bf16 reads K and V in place and asks for none
     n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, dv, is_bf16)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):

@@ -112,8 +112,32 @@ def test_plain_with_a_narrower_v_head_matches_reference_blockwise(causal):
 
 
 def test_kernel_block_k_follows_the_kernels_tiles():
-    assert [fa.kernel_block_k(d, torch.bfloat16) for d, _ in fa.HEAD_DIMS] == [64, 64, 64, 32, 32]
+    assert [fa.kernel_block_k(d, torch.bfloat16) for d, _ in fa.HEAD_DIMS] == [128] * 5
     assert [fa.kernel_block_k(d, torch.float32) for d, _ in fa.HEAD_DIMS] == [64, 64, 64, 32, 16]
+
+
+# bf16 at the kernel's tiles: (B, Sq, Sk, H, Hk, D, causal), one causal with
+# GQA, one ragged (Sq, Sk not multiples of 128) without the mask
+KERNEL_TILE_SHAPES = [(1, 256, 256, 4, 2, 64, True), (2, 200, 300, 4, 4, 128, False)]
+
+
+@pytest.mark.parametrize("shape", KERNEL_TILE_SHAPES, ids=lambda s: "x".join(map(str, s[:6])))
+def test_plain_at_the_kernels_bf16_tiles_matches_reference(shape):
+    """The plain version at ``kernel_block_k(d, bf16)`` (the oracle that
+    ``chip_smoke.py`` holds the card's bf16 kernel to) against the reference's
+    Pallas kernel in interpret mode at the same ``block_k``: both round p and
+    each block's P·V to bf16 at the same keys. Tolerance: check_flash's, rtol
+    2e-2 and atol min(2e-2, 2^-6 max|o|)."""
+    b, sq, sk, h, hk, d, causal = shape
+    bk = fa.kernel_block_k(d, torch.bfloat16)
+    q, k, v = qkv_inputs(7, b, sq, sk, h, hk, d)
+    oj = np.asarray(j_flash_attention(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                                      causal=causal, block_q=128, block_k=bk), np.float32)
+    ot = fa.flash_attention_fwd(*(torch.tensor(x).to(torch.bfloat16) for x in (q, k, v)),
+                                causal=causal, block_k=bk)
+    assert ot.shape == (b, sq, h, d) and ot.dtype == torch.bfloat16
+    atol = min(2e-2, 2.0**-6 * float(np.abs(oj).max()))
+    np.testing.assert_allclose(to_np(ot), oj, atol=atol, rtol=2e-2)
 
 
 def round_tf32(x):
