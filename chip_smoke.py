@@ -7,9 +7,9 @@
 Phases, one JSON line each (and after each, a ``phase_seconds`` line with its
 name and wall seconds; their total on the line before the last):
   1. device   the card, its count, and nvidia-smi's name and power limit
-  2. build    the four CUDA kernels from src/repro_torch/csrc, nvcc seconds,
-              ptxas report, and flash attention's dynamic shared memory per pair
-              of head dims
+  2. build    the five CUDA sources from src/repro_torch/csrc, nvcc seconds,
+              ptxas report (registers, spills), and flash attention's forward's
+              and backward's dynamic shared memory per pair of head dims
   3. kernels  each kernel against its plain PyTorch version on the card, at the
               serve and prefill paths' full-width shapes (flash attention also at
               granite-moe-3b-a800m's, 24 heads over 8, at deepseek-v3-671b's
@@ -22,7 +22,13 @@ name and wall seconds; their total on the line before the last):
               the tier pools, every pool tensor exact); ordered_scatter_add bit for
               bit against the CPU's serial index_add_ on the same lanes, at the obs
               sums' rows (64 x 9 and 192 x 6) and 1, 128 and 1,024 lanes, with
-              duplicates and drops, every lane to one row, every lane dropped
+              duplicates and drops, every lane to one row, every lane dropped;
+              flash attention's backward (kernels for Delta, dK and dV, dQ)
+              against its plain version on the same q, k, v, output, log-sum-exp
+              and cotangent, f32 within 1e-5 and bf16 within 2^-6 of each
+              gradient's largest plain entry, two calls bit-equal, at every
+              training shape above (tinyllama's, granite's, MLA's at B 1 x 1024
+              and ragged, whisper's three, and the tensor-parallel ranks')
   4. path     the tiered serve step on the card against the same step on the CPU,
               from the same state, along 16 steps of a 2-layer model; then
               make_prefill and 8 make_serve_step steps the same way, at kv_bits
@@ -61,15 +67,19 @@ name and wall seconds; their total on the line before the last):
               checkpoints): (a) one make_train_step step of a 2-layer model at
               full widths in f32 on the card against the CPU, the same numpy-made
               parameters and batch (loss, grad norm, every updated parameter and
-              moment); (b) the flash kernel's autograd entry (kernel forward,
-              plain-attention backward) against the plain attention's autograd at
-              the training shape in f32 and bf16, the kernel's refusal of inputs
-              that require grad, and the forward's and backward's times; (c) the
-              main path, launch.train.run at full width and depth (bf16, remat,
-              batch 4 x 2048 tokens, 8 steps): loss and grad norm per step, ms per
-              step, tokens/s, peak memory, exactly 44 flash launches a step, and
-              a profiled step; (d) a 2-layer run resumed from its step-3
-              checkpoint, its losses equal to an uninterrupted run's bit for bit
+              moment); (b) the flash kernel's autograd entry (kernel forward with
+              its log-sum-exp, kernel backward) against the plain attention's
+              autograd at the training shape in f32 (taken exactly, in f64) and
+              bf16 (blockwise_attention), the kernel's refusal
+              of inputs that require grad, and the times of the forward, the
+              forward with its log-sum-exp, the backward kernels beside their
+              bound, the plain backward and PyTorch's fused attention's backward;
+              (c) the main path, launch.train.run at full width and depth (bf16,
+              remat, batch 4 x 2048 tokens, 8 steps): loss and grad norm per step,
+              ms per step, tokens/s, peak memory, exactly 44 flash forward and 22
+              backward launches a step, and a profiled step; (d) a 2-layer run
+              resumed from its step-3 checkpoint, its losses equal to an
+              uninterrupted run's bit for bit
  10. moe      the MoE family at granite-moe-3b-a800m's widths (32 layers, d_model
               1536, 24 heads over 8 of 64, 40 experts top-8 of width 512; 3.30 B
               parameters): (a) 2 layers in f32, make_prefill and 8 make_serve_step
@@ -82,8 +92,9 @@ name and wall seconds; their total on the line before the last):
               launches (exactly 32 per prefill, 0 per decode step), host syncs of a
               decode step; (c) the main training path, launch.train.run at full
               width and depth (bf16, router f32, remat, batch 4 x 2048, 8 steps):
-              ms per step, tokens/s, peak memory, exactly 64 flash launches a step,
-              finite losses and grad norms, a profiled step; (d) a profiled decode
+              ms per step, tokens/s, peak memory, exactly 64 flash forward and 32
+              backward launches a step, finite losses and grad norms, a profiled
+              step; (d) a profiled decode
               step: the top device ops and the device's busy share
  11. ssd      the SSD simulator (Layer A: ssdsim.state.init_state -> engine.run ->
               engine.summarize) on the card at the paper's Table III geometry:
@@ -134,7 +145,7 @@ name and wall seconds; their total on the line before the last):
               per decode step), host syncs of a decode step, and a profiled
               decode step; (c) the flash kernel's autograd entry against the
               plain attention's autograd at MLA's shape (B 1, S 1024, H 128),
-              f32 and bf16
+              f32 (taken exactly, in f64) and bf16
  14. families the last three families at their published widths: whisper-medium
               (encdec: 24 encoder and 24 decoder layers, d_model 1024, 16 heads of
               64, 1500 frames), xlstm-125m (ssm: 12 layers, every 4th sLSTM) and
@@ -156,10 +167,11 @@ name and wall seconds; their total on the line before the last):
               families, whose per-token work the host issues) and a profiled
               decode step. (c) The flash kernel's autograd entry at whisper's
               encoder (B 4 x 1500 x 1500) and cross (416 x 1500) shapes, non-causal,
-              against the plain attention's gradients in f32 and bf16, and its
-              refusal of inputs that require grad; (d) one make_train_step step of
-              each family at (a)'s cut depth in f32, card against CPU from the same
-              numpy-made parameters and batch, held as train (a) holds tinyllama.
+              against the plain attention's gradients in f32 (exact, f64) and bf16,
+              and its refusal of inputs that require grad; (d) one make_train_step
+              step of each family at (a)'s cut depth in f32 on 2 x 32 tokens, card
+              against CPU from the same numpy-made parameters and batch, held as
+              train (a) holds tinyllama.
               Frames and tokens are drawn by numpy from --seed
  15. dryrun   the dry run on the meta device (python -m repro_torch.launch.dryrun)
               held against the card: (a) the whole dry run (ten archs x four
@@ -168,7 +180,7 @@ name and wall seconds; their total on the line before the last):
               (per-device bytes, estimated peak, fits); (b) each arch whose
               parameters fit the card, one cell per kind (train_4k, prefill_32k,
               decode_32k) at published widths and depth with global_batch cut to 1
-              (xlstm's and zamba2's train and prefill to 1024 tokens), and every
+              (xlstm's and zamba2's train and prefill to 512 tokens), and every
               whole cell that fits: each cell the dry run rules out printed with
               its bytes; each other run on the card, its materialized arguments'
               bytes equal to the dry run's per-device argument bytes, the FLOPs
@@ -274,7 +286,10 @@ from repro_torch.experiments import sweep as ssd_sweep  # noqa: E402
 from repro_torch.core import hotness, modes  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
-    HEAD_DIMS, flash_attention_fwd, flash_attention_fwd_plain, kernel_block_k)
+    HEAD_DIMS, flash_attention_fwd, flash_attention_fwd_lse, flash_attention_fwd_plain,
+    kernel_block_k)
+from repro_torch.kernels.flash_attention.flash_attention_bwd import (  # noqa: E402
+    flash_attention_bwd, flash_attention_bwd_plain, flash_bwd_flops, kernel_bwd_block)
 # the store entry is read off these modules where it is used, so that the
 # store path's timing and sync counts also run against a tree that lacks it
 from repro_torch.kernels.quant_page import quant_page as qp, ref as qp_ref  # noqa: E402
@@ -408,9 +423,18 @@ KERNELS = {
         route="cuda", source="src/repro_torch/csrc/ordered_scatter_add.cu",
         replaces="no Pallas kernel: the reference's drop-mode scatter-adds "
                  "src/repro/ssdsim/obs.py:192 and :218 (record_reads)"),
+    "flash_attention_bwd": dict(
+        route="cuda", source="src/repro_torch/csrc/flash_attention_bwd.cu",
+        replaces="no Pallas kernel: the reference's training gradient, XLA's autodiff of "
+                 "blockwise_attention src/repro/models/attention.py:27 (its flash kernel "
+                 "src/repro/kernels/flash_attention/flash_attention.py:63 is forward only)"),
 }
 COUNTERS = {"tiered_decode_partial": tiered_decode_partial, "quantize_pages": quantize_pages,
-            "flash_attention_fwd": flash_attention_fwd, "ordered_scatter_add": ordered_scatter_add}
+            "flash_attention_fwd": flash_attention_fwd, "ordered_scatter_add": ordered_scatter_add,
+            "flash_attention_bwd": flash_attention_bwd}
+# flash_attention_bwd's launches by main path (a training step's), filled in
+# by the phases that run one, each read right after its run
+BWD_BY_PATH: dict = {}
 
 
 def check(ok, msg):
@@ -532,12 +556,20 @@ def store_cost(kpage, tier, slot, pools, tiers=(0, 1, 2)):
     return bytes_, sum(2 * 5 * elems for t in stored if t > 0)
 
 
+def normal(rng, shape, dtype, device):
+    """Standard normal draws of ``shape`` in ``dtype``, made on ``device`` by a
+    generator seeded from the numpy ``rng`` (the flash checks' large inputs:
+    drawing them on the host took tens of seconds a run)."""
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(2**62)))
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
 def flash_inputs(rng, b, sq, sk, h, hk, d, dtype, device):
     """Random q (B, Sq, H, D), k (B, Sk, Hk, D) and v (B, Sk, Hk, Dv) in
     ``dtype``, Dv = V_DIM[d]. Where Dv < D, v is the second half of a (B, Sk,
     Hk, 2 Dv) tensor, strided as MLA's prefill hands it over."""
     dv = V_DIM[d]
-    q, k, kv = [torch.tensor(rng.standard_normal(shape).astype(np.float32)).to(dtype).to(device)
+    q, k, kv = [normal(rng, shape, dtype, device)
                 for shape in ((b, sq, h, d), (b, sk, hk, d), (b, sk, hk, dv if dv == d else 2 * dv))]
     return q, k, kv[..., -dv:]
 
@@ -551,6 +583,16 @@ def flash_cost(q, k, v, causal=True):
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     bytes_ = (q.numel() + k.numel() + v.numel() + q.numel() // d * dv) * q.element_size()
     return bytes_, 2 * (d + dv) * b * h * pairs
+
+
+def flash_bwd_cost(q, k, v, causal=True):
+    """(bytes, flops) of one backward call: q, k, v, the output, its
+    cotangent and the log-sum-exp read once, dq, dk and dv written once; the
+    five products per kept (query, key) pair (``flash_bwd_flops``)."""
+    b, sq, h, d = q.shape
+    o = b * sq * h * v.shape[-1]
+    bytes_ = (2 * (q.numel() + k.numel() + v.numel()) + 2 * o) * q.element_size() + b * h * sq * 4
+    return bytes_, flash_bwd_flops(q.shape, v.shape, k.shape[1], causal)
 
 
 def ordered_inputs(rng, rows, cols, lanes, dev, how="mixed"):
@@ -600,13 +642,18 @@ def phase_device():
 def phase_build():
     t0 = time.perf_counter()
     report = build.build(["tiered_attention", "quant_page", "flash_attention",
-                          "ordered_scatter_add"])
+                          "ordered_scatter_add", "flash_attention_bwd"])
     smem = build.load("flash_attention").flash_attention_smem_bytes
     smem.restype = ctypes.c_int
     flash_smem = {f"D{d},{dv} {dt}": smem(d, dv, int(dt == "bf16")) for d, dv in HEAD_DIMS
                   for dt in ("f32", "bf16")}
+    bwd_smem = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    bwd_smem.restype = ctypes.c_int
+    flash_bwd_smem = {f"D{d},{dv} {dt} {k}": bwd_smem(d, dv, int(dt == "bf16"), i)
+                      for d, dv in HEAD_DIMS for dt in ("f32", "bf16")
+                      for i, k in enumerate(("dkdv", "dq"))}
     emit("build", seconds=time.perf_counter() - t0, report=report,
-         flash_dynamic_smem_bytes=flash_smem)
+         flash_dynamic_smem_bytes=flash_smem, flash_bwd_dynamic_smem_bytes=flash_bwd_smem)
 
 
 def _max_err(outs, refs, names):
@@ -743,6 +790,51 @@ def check_flash(dev, full_only):
         emit("kernels", kernel="flash_attention_fwd", shape=label,
              b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
              sk_valid=sk_valid, atol=atols, rtol=FLASH_TOL[dt], max_abs_err=errs)
+    return worst
+
+
+def check_flash_bwd(dev, full_only):
+    """The backward kernels against their plain version on the same inputs
+    (q, k, v, the kernel forward's output and log-sum-exp, a cotangent), the
+    plain version over the kernels' tile (``kernel_bwd_block``), at every
+    training shape: f32 within 1e-5 (atol and rtol), bf16 within 2^-6 of
+    each gradient's largest plain entry; two calls bit-equal. Not on the
+    main path: these launches are not counted."""
+    rng = np.random.default_rng(8)
+    shapes = {"full": FLASH_FULL, "granite": FLASH_GRANITE, "mla_train": FLASH_MLA_TRAIN,
+              "mla_ragged": FLASH_MLA_RAGGED, **WHISPER_FLASH, **FLASH_TP, **FLASH_TP_FAMILIES}
+    if full_only:
+        shapes = {k: shapes[k] for k in ("full", "mla_train")}
+    worst = {}
+    for label, (b, sq, sk, h, hk, d, causal) in shapes.items():
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
+            do = normal(rng, (b, sq, h, v.shape[3]), dt, dev)
+            o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+            grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+            torch.cuda.synchronize()
+            refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                             block_k=kernel_bwd_block(d))
+            check(all(torch.equal(a, r) for a, r in zip(grads, again)),
+                  f"flash backward {label} {dt}: two calls differ")
+            errs, atols = {}, {}
+            for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+                check(a.dtype == dt and a.shape == r.shape, f"{label} {name}: {a.dtype} {a.shape}")
+                atol, rtol = TOL, TOL
+                if dt == torch.bfloat16:
+                    atol, rtol = FLASH_BF16_ATOL_OF_MAX * float(r.float().abs().max()), 0.0
+                torch.testing.assert_close(a.float(), r.float(), atol=atol, rtol=rtol,
+                                           msg=lambda m: f"backward {label} {dt} {name}: {m}")
+                errs[name] = float((a.float() - r.float()).abs().max())
+                atols[name] = atol
+            dname = str(dt).replace("torch.", "")
+            worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+            emit("kernels", kernel="flash_attention_bwd", shape=label,
+                 b_sq_sk_h_hk_d_causal=[b, sq, sk, h, hk, d, causal], d_v=V_DIM[d], dtype=dname,
+                 atol=atols, rtol=TOL if dt == torch.float32 else 0.0, max_abs_err=errs,
+                 repeat_bit_equal=True)
+            del q, k, v, do, o, lse, grads, again, refs
     return worst
 
 
@@ -959,7 +1051,7 @@ def phase_policy(dev, cfg):
             n = counts()
             want = {"tiered_decode_partial": 0, "flash_attention_fwd": 0,
                     "quantize_pages": tokens * (4 if rcfg.enabled else 1),
-                    "ordered_scatter_add": 0}
+                    "ordered_scatter_add": 0, "flash_attention_bwd": 0}
             check(n == want, f"policy {size}/{name}: launches {n}, want {want}")
             total.update(n)
             for f in paged.TieredKV._fields:
@@ -1183,7 +1275,7 @@ def phase_prefill(dev, cfg, batch=4, prompt=PROMPT, steps=STEPS):
               and bool(torch.stack([torch.isfinite(x).all() for x in rec.logits]).all()),
               f"non-finite logits at kv_bits {bits}")
         want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0,
-                "quantize_pages": 0, "ordered_scatter_add": 0}
+                "quantize_pages": 0, "ordered_scatter_add": 0, "flash_attention_bwd": 0}
         check(n_prefill == want and n == want,
               f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
         check(cache["k"].shape[2] == prompt + steps
@@ -1225,7 +1317,8 @@ def phase_serve(dev, cfg, steps, batch):
             check(len(finite) == steps and bool(torch.stack(finite).all()), "non-finite logits")
             want = {"tiered_decode_partial": 3 * cfg.n_layers * steps,
                     "quantize_pages": (4 if raro else 1) * cfg.n_layers * steps,
-                    "flash_attention_fwd": 0, "ordered_scatter_add": 0}
+                    "flash_attention_fwd": 0, "ordered_scatter_add": 0,
+                    "flash_attention_bwd": 0}
             check(n == want, f"launches {n}, want {want}")
             check(all(math.isfinite(out[k]) for k in ("mean_prob_drift", "final_prob_drift")),
                   f"drift is not finite: {out}")
@@ -1491,6 +1584,17 @@ def phase_times(dev):
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)
+    # the training entry's launches in f32 (2-layer card-against-CPU steps):
+    # the forward with its log-sum-exp, and the backward on the CUDA cores
+    lse_ms, _ = time_launches(lambda: flash_attention_fwd_lse(q, k, v, causal=causal), n_iter=20)
+    o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    do = normal(rng, o.shape, o.dtype, dev)
+    bwd_ms, bwd_host_ms = time_launches(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), n_iter=5, warmup=2)
+    bwd_bnd, bwd_by = bound_ms(*flash_bwd_cost(q, k, v, causal))  # CUDA cores' f32 rate
+    emit("times", kernel="flash_attention_bwd", shape=list(FLASH_FULL), dtype="float32",
+         ms=bwd_ms, host_ms=bwd_host_ms, bound_ms=bwd_bnd, bound_by=bwd_by,
+         bound_rate="CUDA cores' f32, 67e12", forward_with_lse_ms=lse_ms)
     # the two launches of a chunk at Table III's 1,024 lanes, the lanes' rows
     # drawn evenly over the rows and the drop row
     rows = []
@@ -1524,12 +1628,13 @@ def time_flash_bf16(rng, floor_ms, shape):
     """One launch at a model's shape in bf16 (granite-moe-3b-a800m's prefill
     and training forward; deepseek-v3-671b's MLA prefill, whose v head is
     narrower; whisper-medium's encoder, decoder and cross-attention), its
-    plain version and PyTorch's fused attention."""
+    plain version and PyTorch's fused attention; and one call of the backward
+    kernels at the same shape beside their bound."""
     b, sq, sk, h, hk, d, causal = shape
     q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.bfloat16, "cuda")
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
     plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
-                             n_iter=5, warmup=2)
+                             n_iter=3, warmup=1)
     ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
     def library():  # the yardstick, never called by the port
@@ -1542,7 +1647,13 @@ def time_flash_bf16(rng, floor_ms, shape):
     bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
-    row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+    o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    do = normal(rng, o.shape, o.dtype, o.device)
+    bwd_ms, _ = time_launches(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+                              n_iter=20)
+    bwd_bnd, _ = bound_ms(*flash_bwd_cost(q, k, v, causal), rate)
+    row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
+               backward_ms=bwd_ms, backward_bound_ms=bwd_bnd)
     emit("times", kernel="flash_attention_fwd", shape=list(shape), d_v=V_DIM[d], dtype="bfloat16",
          host_ms=host_ms, bytes=bytes_, flops=flops, bound_rate=rate_name,
          launch_floor_ms=floor_ms, library="torch.nn.functional.scaled_dot_product_attention",
@@ -1575,6 +1686,8 @@ TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, moments=1e-4, params_of_lr=1e-2)
 # preparation, the bf16 route's one kernel
 FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel",
                       "flash_attention_bf16_kernel")
+# the backward's three kernels: Delta, dK and dV, dQ
+FLASH_BWD_KERNEL_NAMES = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def numpy_params(cfg, seed):
@@ -1613,8 +1726,8 @@ def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_ca
     (from ``seed``) and batch (default: SyntheticLM's) on the card and on the
     CPU: loss, grad norm, and every updated moment and parameter (TRAIN_TOL).
     The errors are printed before they are checked; the flash launches of the
-    card's step must be the forward's and remat's recompute's. Returns the
-    launches."""
+    card's step must be the forward's and remat's recompute's, and one
+    backward an attention. Returns the launches."""
     check(c.dtype == torch.float32, f"{c.arch} is held in f32, not {c.dtype}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     ocfg = optim.AdamWConfig(lr=TRAIN_CMP["lr"], warmup=1, total_steps=10)
@@ -1669,7 +1782,8 @@ def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_ca
          errors=errs, launches=n)
     # the forward's flash launches, and remat's recompute's in the backward
     want = flash_per_forward(c) * (2 if c.remat else 1)
-    check(n["flash_attention_fwd"] == want, f"{c.arch} flash launches {n}, want {want}")
+    check(n["flash_attention_fwd"] == want and n["flash_attention_bwd"] == flash_per_forward(c),
+          f"{c.arch} flash launches {n}, want {want} forward, {flash_per_forward(c)} backward")
     check(not fails, f"{c.arch} card against CPU: {fails}")
     return n
 
@@ -1687,33 +1801,61 @@ def flash_per_forward(cfg):
     return cfg.n_layers
 
 
+def exact_attention(q, k, v, *, causal):
+    """``attn.reference_attention``'s function taken in float64 throughout
+    (scores, softmax, products; no cast to f32), out in float64: the f32
+    gradient checks' reference. An f32 sum over a head group's 16,384
+    queries (tinyllama's training shape) strays ~1e-4 from the exact value
+    in any order, so f32 blockwise attention's own autograd lies up to
+    8.6e-5 from this there (on an H100), beyond FLASH_TOL."""
+    b, sq, h, d = q.shape
+    _, sk, hk, _ = k.shape
+    qg = attn._gqa_split(q.double(), hk) * d**-0.5
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qg, k.double())
+    if causal:
+        later = torch.ones(sq, sk, dtype=torch.bool, device=q.device).triu(1)
+        s = s.masked_fill(later[None, :, None, None, :], -torch.inf)
+    out = torch.einsum("bqhgk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.double())
+    return out.reshape(b, sq, h, v.shape[-1])
+
+
 def autograd_entry_check(dev, smi, shape, phase, part, seed):
-    """The autograd entry (the flash kernel forward, the plain attention's VJP
-    backward) against the plain blockwise attention's own autograd at
-    ``shape``, in f32 and bf16: output and dq, dk, dv within FLASH_TOL.
-    flash_attention_fwd must refuse inputs that require grad. Returns the
-    errors by dtype name and the last (bf16) q, k, v and output gradient."""
+    """The autograd entry (the flash kernel forward with its log-sum-exp, the
+    backward kernels) against the plain attention's own autograd at
+    ``shape``: in f32 against ``exact_attention`` (f64), in bf16 against the
+    plain blockwise attention (f32 inside, bf16 out); output and dq, dk, dv
+    within FLASH_TOL. f32 blockwise's own distance from the exact gradient is
+    printed beside. flash_attention_fwd must refuse inputs that require grad.
+    Returns the errors by dtype name and the last (bf16) q, k, v and output
+    gradient."""
     rng = np.random.default_rng(seed)
     b, sq, sk, h, hk, d, causal = shape
     out = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, dt, dev)
-        do = torch.tensor(rng.standard_normal((*q.shape[:3], v.shape[3])).astype(np.float32)
-                          ).to(dt).to(dev)
-        res = []
-        for f in (lambda *a: flash_attention_train(*a, causal=causal),
-                  lambda *a: attn.blockwise_attention(*a, causal=causal)):
-            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        do = normal(rng, (*q.shape[:3], v.shape[3]), dt, dev)
+
+        def grads(f, *ins):
+            leaves = [t.clone().requires_grad_() for t in ins]
             o = f(*leaves)
-            res.append([o.detach(), *torch.autograd.grad(o, leaves, do)])
-            del o, leaves
+            return [o.detach(), *torch.autograd.grad(o, leaves, do.to(o.dtype))]
+
+        got = grads(lambda *a: flash_attention_train(*a, causal=causal), q, k, v)
+        blockwise = grads(lambda *a: attn.blockwise_attention(*a, causal=causal), q, k, v)
+        if dt == torch.float32:
+            ref = grads(lambda *a: exact_attention(*a, causal=causal),
+                        *(t.double() for t in (q, k, v)))
+            blockwise_errs = {name: float((a.double() - r).abs().max())
+                              for name, a, r in zip(("o", "dq", "dk", "dv"), blockwise, ref)}
+        else:
+            ref, blockwise_errs = blockwise, None
         errs = {}
-        for name, a, r in zip(("o", "dq", "dk", "dv"), *res):
-            check(a.dtype == r.dtype == dt and a.shape == r.shape, f"{name}: {a.dtype} {a.shape}")
-            torch.testing.assert_close(a.float(), r.float(), atol=FLASH_TOL[dt], rtol=FLASH_TOL[dt],
-                                       msg=lambda m: f"{dt} {name}: {m}")
-            errs[name] = float((a.float() - r.float()).abs().max())
-        del res
+        for name, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+            check(a.dtype == dt and a.shape == r.shape, f"{name}: {a.dtype} {a.shape}")
+            torch.testing.assert_close(a.double(), r.double(), atol=FLASH_TOL[dt],
+                                       rtol=FLASH_TOL[dt], msg=lambda m: f"{dt} {name}: {m}")
+            errs[name] = float((a.double() - r.double()).abs().max())
+        del got, blockwise, ref
         q.requires_grad_()
         try:
             flash_attention_fwd(q, k, v, causal=causal)
@@ -1725,25 +1867,37 @@ def autograd_entry_check(dev, smi, shape, phase, part, seed):
         dname = str(dt).replace("torch.", "")
         out[dname] = dict(max_abs_err=errs)
         emit(phase, part=part, nvidia_smi=smi, b_sq_sk_h_hk_d_causal=list(shape), d_v=V_DIM[d],
-             dtype=dname, tol=FLASH_TOL[dt], max_abs_err=errs, fwd_refuses_grad=refused)
+             dtype=dname, tol=FLASH_TOL[dt],
+             reference="exact_attention (f64)" if blockwise_errs else "blockwise_attention",
+             max_abs_err=errs, blockwise_f32_max_abs_err_from_exact=blockwise_errs,
+             fwd_refuses_grad=refused)
+        torch.cuda.empty_cache()
     return out, (q, k, v, do)
 
 
 def train_attention_check(dev, smi):
     """(b) The autograd entry against the plain attention's autograd at the
     training shape (``autograd_entry_check``). Then, in bf16, the times of
-    the forward kernel, the entry's backward, the plain version and
-    PyTorch's fused attention, forward and backward."""
+    the forward kernel, the forward with its log-sum-exp (the training
+    entry's), the backward kernels (one call: Delta, dK and dV, dQ) beside
+    their bound, the plain backward, the entry's whole backward through
+    autograd, and PyTorch's fused attention, forward and backward."""
     causal = FLASH_FULL[-1]
     out, (q, k, v, do) = autograd_entry_check(dev, smi, FLASH_FULL, "train", "b_autograd_entry", 6)
     # times at the training shape in bf16 (q, k, v, do of the last pass)
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
+    lse_ms, _ = time_launches(lambda: flash_attention_fwd_lse(q, k, v, causal=causal), n_iter=20)
     plain, _ = time_launches(lambda: flash_attention_fwd_plain(q, k, v, causal=causal),
                              n_iter=5, warmup=2)
+    o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    bwd_kernel_ms, bwd_host_ms = time_launches(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), n_iter=20)
+    bwd_plain_ms, _ = time_launches(
+        lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal), n_iter=3, warmup=1)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     o = flash_attention_train(*leaves, causal=causal)
     bwd_ms, _ = time_launches(lambda: torch.autograd.grad(o, leaves, do, retain_graph=True),
-                              n_iter=5, warmup=1)
+                              n_iter=10, warmup=2)
     del o, leaves
     # the yardstick, never called by the port: PyTorch's fused attention, (B, H, S, D)
     lleaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
@@ -1761,16 +1915,20 @@ def train_attention_check(dev, smi):
     bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
-    # the backward: q, k, v, do read once and dq, dk, dv written once; five
-    # products per kept (query, key) pair (the scores again, dP, dV, dQ, dK)
-    bwd_bnd, bwd_by = bound_ms(bytes_ * 7 // 4, flops * 5 // 2, rate)
+    bwd_bnd, bwd_by = bound_ms(*flash_bwd_cost(q, k, v, causal), rate)
     out["times"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-                        backward_ms=bwd_ms, backward_bound_ms=bwd_bnd, backward_bound_by=bwd_by,
-                        library_backward_ms=lib_bwd_ms)
+                        lse_ms=lse_ms, backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms)
+    out["bwd_times"] = dict(ms=bwd_kernel_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bnd,
+                            bound_by=bwd_by, library_ms=lib_bwd_ms, host_ms=bwd_host_ms,
+                            entry_backward_ms=bwd_ms)
     emit("train", part="b_times", nvidia_smi=smi, kernel="flash_attention_fwd",
          b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype="bfloat16", host_ms=host_ms,
          bound_rate=rate_name, library="torch.nn.functional.scaled_dot_product_attention",
          **out["times"])
+    emit("train", part="b_times", nvidia_smi=smi, kernel="flash_attention_bwd",
+         b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype="bfloat16", bound_rate=rate_name,
+         library="the backward of torch.nn.functional.scaled_dot_product_attention",
+         **out["bwd_times"])
     return out
 
 
@@ -1778,8 +1936,9 @@ def train_attention_check(dev, smi):
 def recorded_steps(records):
     """While active, each step of a ``train_step.make_train_step`` step
     function (``launch.train.run`` builds one) is timed between two
-    synchronizes, and its ms, flash launches, loss and grad norm are appended
-    to ``records``. Yields the unwrapped ``make_train_step``."""
+    synchronizes, and its ms, flash forward and backward launches, loss and
+    grad norm are appended to ``records``. Yields the unwrapped
+    ``make_train_step``."""
     make = train_step.make_train_step
 
     def recording(*a, **kw):
@@ -1787,11 +1946,13 @@ def recorded_steps(records):
 
         def timed(params, opt_state, batch):
             torch.cuda.synchronize()
-            n0, t0 = flash_attention_fwd.launches, time.perf_counter()
+            n0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
+            t0 = time.perf_counter()
             params, opt_state, metrics = step(params, opt_state, batch)
             torch.cuda.synchronize()
             records.append(dict(ms=(time.perf_counter() - t0) * 1e3,
                                 flash_launches=flash_attention_fwd.launches - n0,
+                                flash_bwd_launches=flash_attention_bwd.launches - b0,
                                 loss=float(metrics["loss"]),
                                 grad_norm=float(metrics["grad_norm"])))
             return params, opt_state, metrics
@@ -1809,7 +1970,8 @@ def train_run(dev, cfg, smi, phase="train"):
     """(c) The main path: launch.train.run at full width and depth. Each step
     is timed between two synchronizes and its flash launches counted; the
     counts are set to 0 just before the run and read just after it. Then one
-    profiled step. Lines go out under ``phase``."""
+    profiled step. Lines go out under ``phase``; the backward's launches are
+    noted in BWD_BY_PATH under it."""
     records = []
     with recorded_steps(records) as make:
         torch.cuda.reset_peak_memory_stats()
@@ -1820,14 +1982,19 @@ def train_run(dev, cfg, smi, phase="train"):
         n = counts()
     peak = torch.cuda.max_memory_allocated()
     per_step = 2 * cfg.n_layers  # the forward, and remat's recompute in the backward
+    bwd_per_step = cfg.n_layers
     check(len(records) == TRAIN_STEPS and [l for _, l in hist] == [r["loss"] for r in records],
           f"{len(records)} steps recorded, hist {hist}")
     check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in records),
           f"non-finite loss or grad norm: {records}")
-    check(all(r["flash_launches"] == per_step for r in records)
+    check(all(r["flash_launches"] == per_step and r["flash_bwd_launches"] == bwd_per_step
+              for r in records)
           and n == {"flash_attention_fwd": per_step * TRAIN_STEPS, "tiered_decode_partial": 0,
-                    "quantize_pages": 0, "ordered_scatter_add": 0},
-          f"flash launches per step {[r['flash_launches'] for r in records]}, total {n}")
+                    "quantize_pages": 0, "ordered_scatter_add": 0,
+                    "flash_attention_bwd": bwd_per_step * TRAIN_STEPS},
+          f"flash launches per step (forward, backward) "
+          f"{[(r['flash_launches'], r['flash_bwd_launches']) for r in records]}, total {n}")
+    BWD_BY_PATH[phase] = n["flash_attention_bwd"]
     specs = registry.get_api(cfg).specs()
     check(all(t.dtype == sp.dtype for t, sp in zip(base.tree_leaves(params),
                                                    base.tree_leaves(specs))),
@@ -1840,7 +2007,8 @@ def train_run(dev, cfg, smi, phase="train"):
                    remat=cfg.remat, xent_chunk=cfg.xent_chunk, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                    steps=TRAIN_STEPS, first_step_ms=records[0]["ms"], ms_per_step_after_first=ms,
                    tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3),
-                   max_memory_allocated=peak, launches=n, flash_launches_per_step=per_step)
+                   max_memory_allocated=peak, launches=n, flash_launches_per_step=per_step,
+                   flash_bwd_launches_per_step=bwd_per_step)
 
     # where one step's device time goes, after the run, from its final parameters
     ocfg = optim.AdamWConfig(lr=1e-3, warmup=20, total_steps=TRAIN_STEPS)
@@ -1853,10 +2021,13 @@ def train_run(dev, cfg, smi, phase="train"):
     wall_ms, device_ms, cpu_ms = profiled(lambda: step(params, opt, b))
     busy = sum(device_ms.values())
     flash_ms = sum(v for k, v in device_ms.items() if any(f in k for f in FLASH_KERNEL_NAMES))
+    bwd_ms = sum(v for k, v in device_ms.items() if any(f in k for f in FLASH_BWD_KERNEL_NAMES))
     summary.update(profiled_wall_ms=wall_ms, device_busy_ms=busy or None,
                    device_busy_share=busy / wall_ms if busy else None,
                    flash_kernel_ms=flash_ms if busy else None,
                    flash_share_of_busy=flash_ms / busy if busy else None,
+                   flash_bwd_kernel_ms=bwd_ms if busy else None,
+                   flash_bwd_share_of_busy=bwd_ms / busy if busy else None,
                    top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 8))
     emit(phase, part="c_full_width", nvidia_smi=smi, **summary)
     return n
@@ -2026,7 +2197,9 @@ def moe_card_vs_cpu(dev, cfg, smi, k=MOE_CMP, phase="moe"):
     # each attention's forward (the MTP block's too), and with a gradient remat's
     # recompute in the backward
     want = (2 if k["grad"] else 1) * (c.n_layers + c.mtp_depth)
-    check(n_train["flash_attention_fwd"] == want, f"loss launches {n_train}, want {want}")
+    want_bwd = (c.n_layers + c.mtp_depth) if k["grad"] else 0  # one backward an attention
+    check(n_train["flash_attention_fwd"] == want and n_train["flash_attention_bwd"] == want_bwd,
+          f"loss launches {n_train}, want {want} forward, {want_bwd} backward")
 
 
 def timed_serve(mod, cfg, params, prefill, step, data, prompt, steps):
@@ -2084,7 +2257,7 @@ def moe_serve(dev, cfg, smi, batch=4, prompt=PROMPT, steps=MOE_STEPS, phase="moe
     tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
     n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
     want = {"flash_attention_fwd": cfg.n_layers, "tiered_decode_partial": 0, "quantize_pages": 0,
-            "ordered_scatter_add": 0}
+            "ordered_scatter_add": 0, "flash_attention_bwd": 0}
     check(n_prefill == want and n == want,
           f"launches {n_prefill} in the prefill and {n} in the run, want {want}")
     check(len(r["logits"]) == steps + 1
@@ -2167,6 +2340,9 @@ FAM_BATCH, FAM_STEPS = 4, 32  # (b)
 # token the same step, so 64 tokens show it (256 until PR 27: the profiler
 # took 35-50 s of it on a slow host, near the script's 1,200 s)
 FAM_PROFILE_PROMPT = 64
+# (d)'s training batch: 2 x 32 tokens (at 64, zamba2's step on the CPU, a
+# host step per token and layer, took 51-81 s of the script)
+FAM_TRAIN_PROMPT = 32
 
 
 def family_batch(cfg, rng, batch, prompt, labels=False):
@@ -2288,7 +2464,7 @@ def families_serve(dev, smi, arch, seed, batch=FAM_BATCH, steps=FAM_STEPS):
     tok, cache, prefill_s, decode_s = r["tok"], r["cache"], r["prefill_s"], r["decode_s"]
     n_prefill, n, peak = r["n_prefill"], r["n"], r["peak"]
     want = {"flash_attention_fwd": flash_per_forward(cfg), "tiered_decode_partial": 0,
-            "quantize_pages": 0, "ordered_scatter_add": 0}
+            "quantize_pages": 0, "ordered_scatter_add": 0, "flash_attention_bwd": 0}
     check(n_prefill == want and n == want,
           f"{arch} launches {n_prefill} in the prefill and {n} in the run, want {want}")
     check(len(r["logits"]) == steps + 1
@@ -2334,8 +2510,9 @@ def families_train(dev, smi, seed):
     """(c) The flash kernel's autograd entry at whisper's encoder and cross
     shapes (non-causal, Sq = Sk = 1500 and 416 x 1500) against the plain
     attention's gradients, f32 and bf16; (d) one make_train_step step of each
-    family at its (a) depth cut and published widths in f32, on the card and
-    on the CPU from the same numpy-made parameters and batch
+    family at its (a) depth cut and published widths in f32 on
+    FAM_TRAIN_PROMPT tokens, on the card and on the CPU from the same
+    numpy-made parameters and batch
     (``train_card_vs_cpu``). Returns (c)'s errors by shape and (d)'s flash
     launches by arch."""
     entry = {label: autograd_entry_check(dev, smi, WHISPER_FLASH[label], "families",
@@ -2345,7 +2522,7 @@ def families_train(dev, smi, seed):
     launches = {}
     for arch, (cfg, _, cut, _) in FAMILIES.items():
         c = cfg.with_(**cut, dtype=torch.float32)
-        batch = family_batch(c, np.random.default_rng(seed), FAM_CMP["batch"], FAM_CMP["prompt"],
+        batch = family_batch(c, np.random.default_rng(seed), FAM_CMP["batch"], FAM_TRAIN_PROMPT,
                              labels=True)
         launches[arch] = train_card_vs_cpu(dev, c, smi, batch=batch, seed=seed,
                                            phase="families", part="d_train_card_vs_cpu")
@@ -2369,6 +2546,7 @@ def phase_families(dev, smi, seed):
         torch.cuda.empty_cache()
     entry, train_launches = families_train(dev, smi, seed)
     launches["whisper_train"] = train_launches["whisper-medium"]["flash_attention_fwd"]
+    BWD_BY_PATH["whisper_train"] = train_launches["whisper-medium"]["flash_attention_bwd"]
     return launches, entry
 
 
@@ -2376,7 +2554,9 @@ def phase_families(dev, smi, seed):
 # the dry run (launch/dryrun.py) on the card machine, held against real steps
 # --------------------------------------------------------------------------
 DRYRUN_JOBS = 7  # the dry run's processes, one arch each, on the machine's 8 cores
-DRYRUN_CUT_SEQ = 1024  # the recurrent families' train and prefill: one host step per token
+# the recurrent families' train and prefill: one host step per token (at
+# 1,024, xlstm's train cell took 35 s of the script)
+DRYRUN_CUT_SEQ = 512
 DRYRUN_KINDS = {"train": "train_4k", "prefill": "prefill_32k", "decode": "decode_32k"}
 RECURRENT = ("ssm", "hybrid")
 # all that the bytes requested from the allocator hold beyond the live
@@ -2460,8 +2640,9 @@ def dryrun_cell(dev, smi, cfg, shape, cuts, rec):
     per-device argument bytes, leaf shapes and dtypes its abstract ones), one
     step under FlopCounterMode where the step has no per-token host loop
     (its count must equal the record's), and one timed step: achieved
-    TFLOP/s, peak memory beside the estimate, flash launches. Returns the
-    timed step's flash launches, or None where the cell was ruled out."""
+    TFLOP/s, peak memory beside the estimate, flash launches (forward and
+    backward). Returns the timed step's flash launches, or None where the
+    cell was ruled out."""
     head = dict(nvidia_smi=smi, arch=cfg.arch, shape=shape.name, kind=shape.kind,
                 batch=shape.global_batch, seq=shape.seq_len, cuts=cuts,
                 per_device_bytes=rec["per_device_bytes"], peak_estimate=rec["peak_bytes_estimate"],
@@ -2494,25 +2675,26 @@ def dryrun_cell(dev, smi, cfg, shape, cuts, rec):
             dryrun.run_step(cfg, shape, args)
             torch.cuda.synchronize()
         card_flops, card_live = int(fc.get_total_flops()), live.peak
-    n0 = flash_attention_fwd.launches
+    n0, b0 = flash_attention_fwd.launches, flash_attention_bwd.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     dryrun.run_step(cfg, shape, args)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    flash = flash_attention_fwd.launches - n0
+    flash, flash_bwd = flash_attention_fwd.launches - n0, flash_attention_bwd.launches - b0
     peak = torch.cuda.max_memory_allocated()
     # what was asked for, before the allocator rounds blocks up (to 512 bytes,
     # and by its default settings up to 1 MiB more where it does not split one)
     requested = torch.cuda.memory_stats()["requested_bytes.all.peak"]
     want = flash_per_forward(cfg) * (2 if shape.kind == "train" and cfg.remat else 1)
+    want_bwd = flash_per_forward(cfg) if shape.kind == "train" else 0
     if shape.kind == "decode":
         want = 0
     emit("dryrun", part="b_cell", **head, argument_bytes_on_card=nbytes, card_flops=card_flops,
          ms=ms, achieved_tflop_per_s=rec["step_flops_global"] / (ms / 1e3) / 1e12,
          max_memory_allocated=peak, peak_over_estimate=peak / rec["peak_bytes_estimate"],
          requested_bytes_peak=requested, max_memory_reserved=torch.cuda.max_memory_reserved(),
-         tracked_peak_on_card=card_live, flash_launches=flash)
+         tracked_peak_on_card=card_live, flash_launches=flash, flash_bwd_launches=flash_bwd)
     # what the tracker cannot see (kernels' inside allocations but softmax's,
     # which inside_bytes adds) is at most cuBLAS's workspace
     check(card_live is None
@@ -2522,7 +2704,9 @@ def dryrun_cell(dev, smi, cfg, shape, cuts, rec):
     check(card_flops is None or card_flops == rec["step_flops_global"],
           f"{cfg.arch} {shape.name}: {card_flops} FLOPs counted on the card, "
           f"{rec['step_flops_global']} on meta")
-    check(flash == want, f"{cfg.arch} {shape.name}: {flash} flash launches, want {want}")
+    check(flash == want and flash_bwd == want_bwd,
+          f"{cfg.arch} {shape.name}: {flash} flash launches, want {want}; {flash_bwd} "
+          f"backward, want {want_bwd}")
     del args
     torch.cuda.empty_cache()
     return flash
@@ -2575,6 +2759,7 @@ def phase_dryrun(dev, smi):
     emit("dryrun", part="b_summary", nvidia_smi=smi, cells=len(cells),
          run=sum(f is not None for f in ran), ruled_out=sum(f is None for f in ran),
          seconds=time.perf_counter() - t0, launches=n)
+    BWD_BY_PATH["dryrun_cells"] = n["flash_attention_bwd"]
     return n
 
 
@@ -3444,7 +3629,8 @@ def parallel_tp(dev, cfg, smi):
         rel = max(abs(a - b) / abs(b) for a, b in zip(f2["losses"], o2["losses"]))
         check(rel <= t["bf16_loss"], f"(f2) rank {i} losses {f2['losses']} vs {o2['losses']}")
         check(f2["flash_launches_per_step"] == [per_step] * TP_STEPS
-              and f2["launches"]["flash_attention_fwd"] == per_step * TP_STEPS,
+              and f2["launches"]["flash_attention_fwd"] == per_step * TP_STEPS
+              and f2["launches"]["flash_attention_bwd"] == cfg.n_layers * TP_STEPS,
               f"(f2) rank {i} flash launches {f2['flash_launches_per_step']}, {f2['launches']}")
         f2["loss_max_rel_err"] = rel
     check(ranks[0]["f2"]["losses"] == ranks[1]["f2"]["losses"], "(f2) the ranks' losses differ")
@@ -3480,6 +3666,7 @@ def parallel_tp(dev, cfg, smi):
                      ranks=rank_lines,
                      note="two ranks share one card and gloo copies every all-reduce through "
                           "the host: these times are not tensor-parallel speed"))
+    BWD_BY_PATH["parallel_tp"] = sum(r["f2"]["launches"]["flash_attention_bwd"] for r in ranks)
     return line, sum(r["f2"]["launches"]["flash_attention_fwd"] for r in ranks)
 
 
@@ -3543,7 +3730,8 @@ def moe_dp_steps(dev, mesh=None):
             seen.append({k: v.detach().cpu() for k, v in base.tree_paths(grads).items()})
         return real_update(ocfg, p, grads, *a)
 
-    out = dict(losses=[], grad_norms=[], step_ms=[], gloo_ms=[], flash_launches=[], drops=[])
+    out = dict(losses=[], grad_norms=[], step_ms=[], gloo_ms=[], flash_launches=[],
+               flash_bwd_launches=[], drops=[])
     coll = {}
     optim.update = update
     try:
@@ -3562,6 +3750,7 @@ def moe_dp_steps(dev, mesh=None):
                 out["step_ms"].append((time.perf_counter() - t0) * 1e3)
                 out["gloo_ms"].append(sum(v["ms"] for v in coll.values()) - sum(out["gloo_ms"]))
                 out["flash_launches"].append(flash_attention_fwd.launches)
+                out["flash_bwd_launches"].append(flash_attention_bwd.launches)
                 out["losses"].append(float(metrics["loss"]))
                 out["grad_norms"].append(float(metrics["grad_norm"]))
                 out["drops"].append(drops[:MOE_DP["n_layers"]])
@@ -3623,8 +3812,12 @@ def parallel_moe_dp(dev, smi):
     check(min(one["drops"][0]) > 0 and rank_drops == one["drops"][0],
           f"(h) dropped assignments: ranks {rank_drops}, one process {one['drops'][0]}")
     per_step = 2 * MOE_DP["n_layers"]  # the forward, and remat's recompute in the backward
-    check(all(r["flash_launches"] == [per_step] * MOE_DP["steps"] for r in (one, *ranks)),
-          f"(h) flash launches {[r['flash_launches'] for r in (one, *ranks)]}")
+    check(all(r["flash_launches"] == [per_step] * MOE_DP["steps"]
+              and r["flash_bwd_launches"] == [MOE_DP["n_layers"]] * MOE_DP["steps"]
+              for r in (one, *ranks)),
+          f"(h) flash launches (forward, backward) "
+          f"{[(r['flash_launches'], r['flash_bwd_launches']) for r in (one, *ranks)]}")
+    BWD_BY_PATH["parallel_moe_data_parallel"] = sum(sum(r["flash_bwd_launches"]) for r in ranks)
     worst = max(ranks, key=lambda r: max(r["grads_of_max"].values()))["grads_of_max"]
     coll = [r["collectives"] for r in ranks]
     line = dict(
@@ -3689,12 +3882,14 @@ def tpf_batches(cfg, shape, seed):
     return [family_batch(cfg, rng, *shape, labels=True) for _ in range(TPF_STEPS)]
 
 
-def train_flash_per_step(cfg):
-    """Flash launches of one training step: each attention layer of the
-    forward (``flash_per_forward``), again in the backward with remat, and
-    MTP's block once (it runs without remat)."""
+def train_flash_per_step(cfg, backward=False):
+    """Flash forward launches of one training step: each attention layer of
+    the forward (``flash_per_forward``), again in the backward with remat, and
+    MTP's block once (it runs without remat). With ``backward``, the
+    backward's launches: one for each attention of the forward."""
     layers = flash_per_forward(cfg.with_(mtp_depth=0))
-    return layers * (2 if cfg.remat else 1) + (cfg.mtp_depth if layers else 0)
+    mtp = cfg.mtp_depth if layers else 0
+    return layers + mtp if backward else layers * (2 if cfg.remat else 1) + mtp
 
 
 def tpf_by_hand(dev, cfg, batches, mesh):
@@ -3826,7 +4021,7 @@ def parallel_tp_families(dev, smi):
     ranks = [torch.load(plan_dir / f"rank{r}.pt", weights_only=False) for r in range(TP_WORLD)]
     shutil.rmtree(plan_dir, ignore_errors=True)
     t, mesh = TP_TOL, Mesh(("data", "model"), (1, TP_WORLD))
-    lines, launches = {}, 0
+    lines, launches, bwd_launches = {}, 0, 0
     for arch in TPF:
         c1, c2 = tpf_cfgs(arch)
         o1, o2 = one[arch]["g1"], one[arch]["g2"]
@@ -3858,11 +4053,18 @@ def parallel_tp_families(dev, smi):
                   and g2["bytes"]["adamw_state"] == per_dev["opt_state"],
                   f"(g2) {arch} rank {i} bytes {g2['bytes']} vs the dry run's {per_dev}")
             check(g2["flash_launches_per_step"] == [want_flash] * TPF_STEPS
-                  and g2["launches"]["flash_attention_fwd"] == want_flash * TPF_STEPS,
+                  and g2["launches"]["flash_attention_fwd"] == want_flash * TPF_STEPS
+                  and g2["launches"]["flash_attention_bwd"]
+                  == train_flash_per_step(c2, backward=True) * TPF_STEPS,
                   f"(g2) {arch} rank {i} flash launches {g2['flash_launches_per_step']}, "
-                  f"want {want_flash} a step")
+                  f"want {want_flash} a step; {g2['launches']}")
+            check(g1["launches"]["flash_attention_bwd"]
+                  == train_flash_per_step(c1, backward=True) * TPF_STEPS,
+                  f"(g1) {arch} rank {i} backward launches {g1['launches']}")
             launches += (g1["launches"]["flash_attention_fwd"]
                          + g2["launches"]["flash_attention_fwd"])
+            bwd_launches += (g1["launches"]["flash_attention_bwd"]
+                             + g2["launches"]["flash_attention_bwd"])
             coll = {name: dict(calls=c["calls"], ms=c["ms"], share_of_steps=c["ms"] / sum(
                 g2["step_ms"])) for name, c in g2["collectives"].items()}
             rank_lines.append(dict(
@@ -3901,6 +4103,7 @@ def parallel_tp_families(dev, smi):
                 spawn_to_end_s=wall_s, archs=lines,
                 note="two ranks share one card and gloo copies every collective through "
                      "the host: these times are not tensor-parallel speed")
+    BWD_BY_PATH["parallel_tp_families"] = bwd_launches
     return line, launches
 
 
@@ -3924,9 +4127,12 @@ def phase_parallel(dev, cfg, smi):
         check(h_mesh == h_one and all(torch.equal(a, b) for a, b in zip(
             base.tree_leaves(p_mesh), base.tree_leaves(p_one))),
               f"(b) the one-rank mesh run differs from mesh=None: {h_mesh} vs {h_one}")
-        check(all(r["flash_launches"] == per_step for r in r_mesh)
-              and n["flash_attention_fwd"] == per_step * PARALLEL_STEPS,
+        check(all(r["flash_launches"] == per_step and r["flash_bwd_launches"] == cfg.n_layers
+                  for r in r_mesh)
+              and n["flash_attention_fwd"] == per_step * PARALLEL_STEPS
+              and n["flash_attention_bwd"] == cfg.n_layers * PARALLEL_STEPS,
               f"(b) flash launches {[r['flash_launches'] for r in r_mesh]}, total {n}")
+        BWD_BY_PATH["parallel_train"] = n["flash_attention_bwd"]
         del p_one
         data_mean = parallel_data_mean(dev, cfg, p_mesh, mesh)
         train_line = dict(arch=cfg.arch, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=PARALLEL_STEPS,
@@ -4003,7 +4209,8 @@ def main():
         "tiered_decode_partial": check_partial(dev, a.quick),
         "quantize_pages": check_quant(dev, a.quick),
         "flash_attention_fwd": check_flash(dev, a.quick),
-        "ordered_scatter_add": check_ordered(dev, a.quick)})
+        "ordered_scatter_add": check_ordered(dev, a.quick),
+        "flash_attention_bwd": check_flash_bwd(dev, a.quick)})
     emit("kernels", max_abs_err=errs)
     if not a.quick:
         cfg = tinyllama_1_1b.CONFIG
@@ -4052,6 +4259,13 @@ def main():
         launches["flash_attention_fwd"] = sum(by_path.values())
         flash_err = errs["flash_attention_fwd"]
         errs["flash_attention_fwd"] = max(flash_err.values())
+        # the backward's main paths: every training step on the card above
+        # (tinyllama's, granite's, whisper's, the dry run's train cells, the
+        # one-rank mesh's, and both ranks' of (f2), (g) and (h))
+        launches["flash_attention_bwd"] = sum(BWD_BY_PATH.values())
+        bwd_err = errs["flash_attention_bwd"]
+        errs["flash_attention_bwd"] = max(bwd_err.values())
+        times["flash_attention_bwd"] = train_attention["bwd_times"]
         extra = {"quantize_pages": dict(launches_by_path=store_by_path),
                  "ordered_scatter_add": dict(
                      launches_by_path={"ssd": launches["ordered_scatter_add"]},
@@ -4059,7 +4273,7 @@ def main():
                      library="torch.index_add on CUDA (atomic adds, no fixed order)"),
                  "flash_attention_fwd": dict(
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
-                dt: r["max_abs_err"] for dt, r in train_attention.items() if dt != "times"}),
+                dt: train_attention[dt]["max_abs_err"] for dt in ("float32", "bfloat16")}),
             granite_bf16=dict(**times["flash_granite"], max_abs_err={
                 dt: flash_err[f"granite_{dt}"] for dt in ("float32", "bfloat16")}),
             mla_bf16=dict(**times["flash_mla"], max_abs_err={
@@ -4070,7 +4284,13 @@ def main():
                for label in (*WHISPER_FLASH, *FLASH_TP_FAMILIES)},
             whisper_autograd_entry_max_abs_err={
                 label: {dt: r["max_abs_err"] for dt, r in e.items()}
-                for label, e in whisper_entry.items()})}
+                for label, e in whisper_entry.items()}),
+                 "flash_attention_bwd": dict(
+            launches_by_path=BWD_BY_PATH, max_abs_err_by_dtype=bwd_err,
+            shape=list(FLASH_FULL), dtype="bfloat16",
+            library="the backward of torch.nn.functional.scaled_dot_product_attention",
+            forward_with_lse_ms=train_attention["times"]["lse_ms"],
+            entry_backward_ms=train_attention["bwd_times"]["entry_backward_ms"])}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

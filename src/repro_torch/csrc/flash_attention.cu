@@ -11,7 +11,9 @@
 // type. GQA: query head h reads KV head h / (H / Hk). The query and key heads
 // are DQK wide and the value head DV wide: the pairs (d, d) for d in 16, 32, 64
 // and 128, and (192, 128), MLA's (nope 128 + rope 64 over v 128); the scale is
-// DQK^-0.5.
+// DQK^-0.5. The training forward's launch (flash_attention_fwd_lse_launch) also
+// writes each row's log-sum-exp m + log(l) of the scaled scores, f32, from which
+// the backward (flash_attention_bwd.cu) recomputes P; the prefill's writes none.
 //
 // Grid: the TPU version walks (B*H, Sq/BQ, Sk/BK) with the KV axis innermost
 // and in order, carrying m, l and acc in scratch memory across it. Blocks here
@@ -133,6 +135,7 @@ constexpr int kBQ = 16 * kWarps;  // query rows per block: 16 a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // the reference's sentinel, not -inf
 constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
+constexpr float kLn2 = 0.6931471805599453f;  // log(x) = log2(x) ln(2)
 
 struct Strides {  // in elements; the head dim is contiguous
   long long b, s, h;
@@ -348,8 +351,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_fwd_kernel(const float* __restrict__ q, const char* __restrict__ tiles,
-                           float* __restrict__ o, Strides qs, Strides os, int H, int Hk, int Sq,
-                           int n_kv, int sk_valid, int causal, float scale) {
+                           float* __restrict__ o, float* __restrict__ lse, Strides qs, Strides os,
+                           int H, int Hk, int Sq, int n_kv, int sk_valid, int causal, float scale) {
   using C = Cfg<DQK, DV>;
   constexpr int BK = C::BK;
   extern __shared__ float4 smem4[];
@@ -536,6 +539,8 @@ flash_attention_fwd_kernel(const float* __restrict__ q, const char* __restrict__
   for (int i = 0; i < 2; ++i) {
     const int r = i ? r1 : r0;
     if (r >= Sq) continue;
+    // the training forward's log-sum-exp: m is of the scaled scores here
+    if (lse && t == 0) lse[((size_t)b * H + h) * Sq + r] = m[i] + logf(l[i]);
     const float den = fmaxf(l[i], 1e-30f);
     float* ob = o + b * os.b + r * os.s + h * os.h + 2 * t;
 #pragma unroll
@@ -607,7 +612,7 @@ flash_prepare_kv_kernel(const float* __restrict__ k, const float* __restrict__ v
 }
 
 template <int DQK, int DV>
-int launch_f32(const void* q, const void* k, const void* v, void* o, void* tiles,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, void* tiles,
                const long long* st, int B, int H, int Hk, int Sq, int Sk, int sk_valid,
                int causal, float scale, cudaStream_t stream) {
   using C = Cfg<DQK, DV>;
@@ -627,8 +632,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, void* tiles
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kernel<<<grid, kThreads, C::kSmem, stream>>>(static_cast<const float*>(q),
                                                 static_cast<const char*>(tiles),
-                                                static_cast<float*>(o), qs, os, H, Hk, Sq, n_kv,
-                                                sk_valid, causal, scale);
+                                                static_cast<float*>(o), lse, qs, os, H, Hk, Sq,
+                                                n_kv, sk_valid, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -818,8 +823,9 @@ __global__ void __launch_bounds__(Bf16Cfg<DQK, DV>::kThreads, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, Strides os, int B, int H, int Hk,
-                            int Sq, int sk_valid, int causal, int pair, float scale_log2) {
+                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, Strides os,
+                            int B, int H, int Hk, int Sq, int sk_valid, int causal, int pair,
+                            float scale_log2) {
   using C = Bf16Cfg<DQK, DV>;
   constexpr int BK = C::BK, NS = C::kStages;
   extern __shared__ float4 smem4[];
@@ -1158,6 +1164,9 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < 2; ++i) {
         const int r = i ? r1 : r0;
         const float inv = __frcp_rn(fmaxf(l[i], 1e-30f));
+        // the training forward's log-sum-exp, natural log: m is of the raw scores
+        if (lse && t == 0 && r < Sq)
+          lse[((size_t)u.b * H + u.h) * Sq + r] = (m[i] * scale_log2 + log2f(l[i])) * kLn2;
         __nv_bfloat16* ob = o + u.b * os.b + r * os.s + u.h * os.h;
         uint32_t word[DV / 8];  // columns 8n + 2t, 8n + 2t + 1 of the row, in bf16
 #pragma unroll
@@ -1251,9 +1260,9 @@ int tensor_map(CUtensorMap* map, const void* base, int d, int s, int h, int b,
 }
 
 template <int DQK, int DV>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, const long long* st, int B,
-                int H, int Hk, int Sq, int Sk, int sk_valid, int causal, float scale,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                const long long* st, int B, int H, int Hk, int Sq, int Sk, int sk_valid,
+                int causal, float scale, cudaStream_t stream) {
   using C = Bf16Cfg<DQK, DV>;
   CUtensorMap tq, tk, tv;
   int e = tensor_map(&tq, q, DQK, Sq, H, B, st, C::kBoxQ, C::BQ, C::kRowQ);
@@ -1276,8 +1285,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, const long
   const int pair = causal && n_qt * H * B > n_sm;
   const long long n_items = (pair ? (n_qt + 1) / 2 : n_qt) * H * B;
   const int grid = (int)(n_items < n_sm ? n_items : n_sm);
-  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), os,
-                                                  B, H, Hk, Sq, sk_valid, causal, pair,
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse,
+                                                  os, B, H, Hk, Sq, sk_valid, causal, pair,
                                                   scale * kLog2e);
   return (int)cudaGetLastError();
 }
@@ -1323,6 +1332,16 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
                                           int Sk, int D, int DV, int sk_valid, int causal,
                                           int is_bf16, float scale, void* stream);
 
+// The same launch that also writes each query row's log-sum-exp, the natural
+// log of the sum of exp of its masked, scaled scores, to lse: (B, H, Sq) f32,
+// contiguous (the training forward; the backward recomputes P from it).
+extern "C" int flash_attention_fwd_lse_launch(const void* q, const void* k, const void* v,
+                                              void* o, void* scratch, long long scratch_bytes,
+                                              const long long* strides, int B, int H, int Hk,
+                                              int Sq, int Sk, int D, int DV, int sk_valid,
+                                              int causal, int is_bf16, float scale, void* lse,
+                                              void* stream);
+
 // The scratch bytes a launch needs, or -1 for a pair of head dims the kernel lacks.
 extern "C" long long flash_attention_scratch_bytes(int B, int Hk, int sk_valid, int D, int DV,
                                                    int is_bf16) {
@@ -1333,11 +1352,12 @@ extern "C" long long flash_attention_scratch_bytes(int B, int Hk, int sk_valid, 
   });
 }
 
-extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                                          void* scratch, long long scratch_bytes,
-                                          const long long* strides, int B, int H, int Hk, int Sq,
-                                          int Sk, int D, int DV, int sk_valid, int causal,
-                                          int is_bf16, float scale, void* stream) {
+extern "C" int flash_attention_fwd_lse_launch(const void* q, const void* k, const void* v,
+                                              void* o, void* scratch, long long scratch_bytes,
+                                              const long long* strides, int B, int H, int Hk,
+                                              int Sq, int Sk, int D, int DV, int sk_valid,
+                                              int causal, int is_bf16, float scale, void* lse,
+                                              void* stream) {
   const long long need = flash_attention_scratch_bytes(B, Hk, sk_valid, D, DV, is_bf16);
   if (B <= 0 || Hk <= 0 || H % Hk || Sq <= 0 || sk_valid < 1 || sk_valid > Sk || need < 0 ||
       scratch_bytes < need)
@@ -1349,15 +1369,26 @@ extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const vo
   for (int i = 0; i < 12; ++i)
     if (strides[i] * elem % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   return (int)dispatch(D, DV, is_bf16, [&](auto d, auto dv, auto tag) -> long long {
     constexpr int DQK_ = decltype(d)::value, DV_ = decltype(dv)::value;
     if constexpr (kIsBf16<decltype(tag)>)
-      return launch_bf16<DQK_, DV_>(q, k, v, o, strides, B, H, Hk, Sq, Sk, sk_valid, causal,
+      return launch_bf16<DQK_, DV_>(q, k, v, o, l, strides, B, H, Hk, Sq, Sk, sk_valid, causal,
                                     scale, s);
     else
-      return launch_f32<DQK_, DV_>(q, k, v, o, scratch, strides, B, H, Hk, Sq, Sk, sk_valid,
+      return launch_f32<DQK_, DV_>(q, k, v, o, l, scratch, strides, B, H, Hk, Sq, Sk, sk_valid,
                                    causal, scale, s);
   });
+}
+
+extern "C" int flash_attention_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                                          void* scratch, long long scratch_bytes,
+                                          const long long* strides, int B, int H, int Hk, int Sq,
+                                          int Sk, int D, int DV, int sk_valid, int causal,
+                                          int is_bf16, float scale, void* stream) {
+  return flash_attention_fwd_lse_launch(q, k, v, o, scratch, scratch_bytes, strides, B, H, Hk, Sq,
+                                        Sk, D, DV, sk_valid, causal, is_bf16, scale, nullptr,
+                                        stream);
 }
 
 // The dynamic shared memory, in bytes, that a launch at head dims (D, DV) takes.

@@ -11,6 +11,9 @@ tensors (the dry run) get the output's shape and the kernel's operation count
 
 Two layouts are taken: the reference kernel's (B·H, S, D), and the model's
 (B, S, H, D), which the kernel reads in place through strides (``ops.py``).
+The training entry's forward (``flash_attention_fwd_lse``) also writes each
+query row's log-sum-exp, which the backward (``flash_attention_bwd.py``)
+recomputes the probabilities from.
 """
 
 from __future__ import annotations
@@ -48,19 +51,23 @@ def _heads_first(x):
     return x.transpose(1, 2).reshape(b * h, s, d)
 
 
-def flash_attention_fwd_plain(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128):
+def flash_attention_fwd_plain(q, k, v, *, sk_valid=None, causal=True, block_q=128, block_k=128,
+                              lse=False):
     """Plain PyTorch version of the kernel, with the Pallas kernel's roundings:
     q cast to f32 and then scaled by D^-0.5, masked scores -1e30, ``p`` cast to
     v's dtype before P·V (whose product is in v's dtype, as the reference's
     ``lax.dot``), the finalize dividing by max(l, 1e-30), the output in q's
     dtype. The online softmax is carried over KV blocks of ``block_k``; query
-    rows are independent, so ``block_q`` does not change the result."""
+    rows are independent, so ``block_q`` does not change the result. With
+    ``lse``, also each row's log-sum-exp m + log(l) of the masked, scaled
+    scores in f32, (B, H, Sq) (or (B·H, Sq) on the reference's layout)."""
     if q.dim() == 4:
         b, sq, h, _ = q.shape
-        o = flash_attention_fwd_plain(_heads_first(q), _heads_first(k), _heads_first(v),
-                                      sk_valid=sk_valid, causal=causal, block_q=block_q,
-                                      block_k=block_k)
-        return o.reshape(b, h, sq, -1).transpose(1, 2)
+        out = flash_attention_fwd_plain(_heads_first(q), _heads_first(k), _heads_first(v),
+                                        sk_valid=sk_valid, causal=causal, block_q=block_q,
+                                        block_k=block_k, lse=lse)
+        o = (out[0] if lse else out).reshape(b, h, sq, -1).transpose(1, 2)
+        return (o, out[1].reshape(b, h, sq)) if lse else o
     bh, sq, d = q.shape
     bh_kv, sk, _ = k.shape
     g = bh // bh_kv
@@ -86,19 +93,22 @@ def flash_attention_fwd_plain(q, k, v, *, sk_valid=None, causal=True, block_q=12
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + (p.to(v.dtype) @ vj).float()
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.reshape(bh, sq, dv).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(bh, sq, dv).to(q.dtype)
+    return (out, (m + torch.log(l)).reshape(bh, sq)) if lse else out
 
 
 def _lib():
-    """The kernel library, its two entry points typed."""
+    """The kernel library, its entry points typed."""
     global _lib_handle
     if _lib_handle is None:
         lib = build.load("flash_attention")
-        lib.flash_attention_fwd_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        args = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_longlong)]
+                + [ctypes.c_int] * 10 + [ctypes.c_float])
+        lib.flash_attention_fwd_launch.argtypes = args + [ctypes.c_void_p]
         lib.flash_attention_fwd_launch.restype = ctypes.c_int
+        # the same, and the log-sum-exp's output before the stream
+        lib.flash_attention_fwd_lse_launch.argtypes = args + [ctypes.c_void_p] * 2
+        lib.flash_attention_fwd_lse_launch.restype = ctypes.c_int
         lib.flash_attention_scratch_bytes.argtypes = [ctypes.c_int] * 6
         lib.flash_attention_scratch_bytes.restype = ctypes.c_longlong
         _lib_handle = lib
@@ -150,8 +160,21 @@ def _kernel_view(t):
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sk_valid: int,
             causal: bool) -> torch.Tensor:
-    """The kernel's launch on CUDA tensors (checked by ``_check``), counted
-    in ``flash_attention_fwd.launches``."""
+    """The prefill's launch on CUDA tensors (checked by ``_check``)."""
+    return _run(q, k, v, sk_valid, causal)
+
+
+def _launch_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sk_valid: int,
+                causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_launch`` that also writes each query row's log-sum-exp, (B, H, Sq)
+    in f32 (q, k, v on the (B, S, H, D) layout)."""
+    lse = torch.empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32, device=q.device)
+    return _run(q, k, v, sk_valid, causal, lse), lse
+
+
+def _run(q, k, v, sk_valid, causal, lse=None):
+    """The kernel's launch, counted in ``flash_attention_fwd.launches``; it
+    writes ``lse`` where one is given."""
     o = torch.empty(q.shape[:-1] + (v.shape[-1],), dtype=q.dtype, device=q.device)
     views = [_kernel_view(t) for t in (q, k, v, o)]
     b, sq, h, d = views[0].shape
@@ -164,11 +187,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sk_valid: int,
     # layout); bf16 reads K and V in place and asks for none
     n_scratch = lib.flash_attention_scratch_bytes(b, hk, sk_valid, d, dv, is_bf16)
     scratch = torch.empty(n_scratch, dtype=torch.uint8, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
+            strides, b, h, hk, sq, sk, d, dv, sk_valid, int(causal), is_bf16, d**-0.5)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), scratch.data_ptr(), n_scratch,
-            strides, b, h, hk, sq, sk, d, dv, sk_valid, int(causal), is_bf16, d**-0.5,
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if lse is None:  # the prefill's launch
+            rc = lib.flash_attention_fwd_launch(*args, stream)
+        else:
+            rc = lib.flash_attention_fwd_lse_launch(*args, lse.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: CUDA error {rc}")
     flash_attention_fwd.launches += 1
@@ -187,7 +213,20 @@ def _flash_shape(q, k, v, sk_valid, causal):
     return q.new_empty(q.shape[:-1] + (v.shape[-1],))
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+# the training forward's launch, which also gives the log-sum-exp; one more
+# operator, so that the prefill's stays as it is
+_flash_lse_op = torch.library.custom_op("repro_torch::flash_attention_fwd_lse", _launch_lse,
+                                        mutates_args=(), device_types="cuda")
+
+
+@_flash_lse_op.register_fake
+def _flash_lse_shape(q, k, v, sk_valid, causal):
+    return (q.new_empty(q.shape[:-1] + (v.shape[-1],)),
+            q.new_empty((q.shape[0], q.shape[2], q.shape[1]), dtype=torch.float32))
+
+
+@register_flop_formula([torch.ops.repro_torch.flash_attention_fwd,
+                        torch.ops.repro_torch.flash_attention_fwd_lse])
 def _flash_op_flops(q_shape, k_shape, v_shape, sk_valid, causal, *args, **kwargs) -> int:
     return flash_flops(q_shape, v_shape, sk_valid, causal)
 
@@ -211,8 +250,8 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
 
     The output is not tracked by autograd, so this raises where q, k or v
     requires grad under grad mode; training takes
-    ``ops.flash_attention_train``, whose backward recomputes the plain
-    attention.
+    ``ops.flash_attention_train``, whose backward is the kernels of
+    ``flash_attention_bwd.py``.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
@@ -233,3 +272,20 @@ def flash_attention_fwd(q, k, v, *, sk_valid=None, causal=True, block_q=128, blo
 
 
 flash_attention_fwd.launches = 0
+
+
+def flash_attention_fwd_lse(q, k, v, *, causal=True):
+    """The training forward: ``flash_attention_fwd`` on the (B, S, H, D)
+    layout that also gives each query row's log-sum-exp, (B, H, Sq) in f32,
+    the natural log of the sum of exp of the masked, scaled scores. Counted
+    in ``flash_attention_fwd.launches`` with the prefill's launches. Called
+    under no grad (by ``ops.FlashAttentionFn``)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal=causal, lse=True)
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention_fwd_lse runs on cuda or cpu (or meta), not {q.device}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need q, k, v all (B, S, H, D); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    _check(q, k, v, k.shape[1])
+    return _flash_lse_op(q, k, v, k.shape[1], causal)

@@ -86,11 +86,14 @@ def inside_bytes(func, args) -> int:
     of a training step) these were the gap between the tracked peak and
     ``max_memory_allocated``: softmax copies a non-contiguous input, and its
     backward makes the gradient's product with the output and copies a
-    non-contiguous gradient, each as large as the plain attention's f32
-    scores."""
+    non-contiguous gradient, each as large as its input (the plain
+    attention's f32 scores, where a window keeps it). The flash backward's
+    wrapper allocates Delta, B·H·Sq f32, inside its operator."""
     def nbytes(t):
         return t.numel() * t.element_size()
 
+    if func is torch.ops.repro_torch.flash_attention_bwd.default:
+        return nbytes(args[4])  # Delta, as large as the log-sum-exp
     if func is torch.ops.aten._softmax.default:
         return 0 if args[0].is_contiguous() else nbytes(args[0])
     if func is torch.ops.aten._softmax_backward_data.default:

@@ -5,7 +5,7 @@ rotation, async saves and crash-resume, on one card (or on the CPU when the
 caller asks for it), or over a mesh of processes: data-parallel over its
 data axes, and tensor-parallel over its "model" axis. On the card the
 attention of every layer is the hand-written flash kernel, its gradient the
-plain attention's.
+hand-written backward kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --smoke --steps 300 --batch 16 --seq 128 [--device cpu]

@@ -103,7 +103,7 @@ def qkv(p, x, cfg: ModelConfig, positions, rope: bool = True, group=None, kv_x=N
 def train_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True):
     """Attention of a training forward (causal unless told otherwise): on the
     card, with no window, the flash kernel through its autograd entry (whose
-    backward recomputes the plain attention), and on the meta device its
+    backward is the flash backward kernels), and on the meta device its
     stand-in; else the plain blockwise attention, as the reference computes
     it (the CPU, and sliding windows)."""
     if cfg.window == 0 and q.device.type != "cpu":

@@ -171,7 +171,7 @@ def _train_flops(cfg) -> int:
 def test_counted_flops_match_the_analytic_model_one_layer(arch):
     """Twin of test_analytic_flops_matches_compiled_one_layer: the analytic
     model within 0.65-1.5 of the port's own count (which counts the flash
-    forward by its kept pairs and the plain attention's backward in full)."""
+    forward and the flash backward by their kept pairs)."""
     counted = _train_flops(ARCHS[arch].with_(n_layers=1, remat=False))
     analytic = model_flops(J_ARCHS[arch].with_(n_layers=1, remat=False),
                            JShapeConfig("t", 512, 8, "train"))["total"]
