@@ -260,6 +260,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -649,11 +650,69 @@ def phase_build():
                   for dt in ("f32", "bf16")}
     bwd_smem = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
     bwd_smem.restype = ctypes.c_int
-    flash_bwd_smem = {f"D{d},{dv} {dt} {k}": bwd_smem(d, dv, int(dt == "bf16"), i)
-                      for d, dv in HEAD_DIMS for dt in ("f32", "bf16")
-                      for i, k in enumerate(("dkdv", "dq"))}
+    flash_bwd_smem = {
+        f"{name}<{d}, {dv}>": bwd_smem(d, dv, int(dt == "bf16"), i) for d, dv in HEAD_DIMS
+        for dt, names in (("bf16", ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")),
+                          ("f32", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")))
+        for i, name in enumerate(names)}
     emit("build", seconds=time.perf_counter() - t0, report=report,
-         flash_dynamic_smem_bytes=flash_smem, flash_bwd_dynamic_smem_bytes=flash_bwd_smem)
+         flash_dynamic_smem_bytes=flash_smem, flash_bwd_dynamic_smem_bytes=flash_bwd_smem,
+         ptxas_by_kernel={name: ptxas_by_kernel(r["ptxas"]) for name, r in report.items()})
+
+
+def _kernel_name(mangled):
+    """``name<args>`` of an entry function of this repository's kernel
+    sources, from its mangled name (_ZN, the anonymous namespace, the name,
+    then int, float or __nv_bfloat16 template arguments)."""
+    at = 3
+
+    def length():
+        nonlocal at
+        end = at
+        while mangled[end].isdigit():
+            end += 1
+        n, at = int(mangled[at:end]), end
+        return n
+
+    n = length()
+    at += n  # the anonymous namespace
+    n = length()
+    name, at, args = mangled[at:at + n], at + n, []
+    if mangled[at:at + 1] == "I":
+        at += 1
+        while mangled[at] != "E":
+            if mangled.startswith("Li", at):
+                end = mangled.index("E", at)
+                args.append(mangled[at + 2:end])
+                at = end + 1
+            elif mangled.startswith("13__nv_bfloat16", at):
+                args.append("bf16")
+                at += 15
+            elif mangled[at] == "f":
+                args.append("float")
+                at += 1
+            else:
+                break
+    return f"{name}<{', '.join(args)}>"
+
+
+def ptxas_by_kernel(lines):
+    """ptxas's report (``nvcc -Xptxas -v``) as {kernel<template args>: registers,
+    spill stores and loads, stack frame bytes}. A kernel that runs setmaxnreg
+    reports the registers its launch allots a thread (168 at 384 threads);
+    its warpgroups' shares are set in its source."""
+    out, name = {}, None
+    for ln in lines:
+        if m := re.search(r"entry function '(_ZN\w+)'", ln):
+            name = _kernel_name(m.group(1))
+            out[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", ln)):
+            out[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        elif name and (m := re.search(r"Used (\d+) registers", ln)):
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def _max_err(outs, refs, names):
@@ -815,7 +874,7 @@ def check_flash_bwd(dev, full_only):
             again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
             torch.cuda.synchronize()
             refs = flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                             block_k=kernel_bwd_block(d))
+                                             block_k=kernel_bwd_block(d, dt))
             check(all(torch.equal(a, r) for a, r in zip(grads, again)),
                   f"flash backward {label} {dt}: two calls differ")
             errs, atols = {}, {}
@@ -1624,12 +1683,30 @@ def phase_times(dev):
     return out
 
 
+def sdpa_backward_ms(q, k, v, do, causal, n_iter=20):
+    """The yardstick of the backward, never called by the port: the device ms
+    of the backward of PyTorch's fused attention (autograd over its (B, H, S,
+    D) leaves, the forward outside the timed call), in q's dtype."""
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                           enable_gqa=True)
+    dout = do.transpose(1, 2).contiguous()
+    # once before the warm-up: a first call's one-time setup would enter the
+    # host time from which time_launches sizes its spin
+    torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    torch.cuda.synchronize()
+    ms, _ = time_launches(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+                          n_iter=n_iter, warmup=2)
+    return ms
+
+
 def time_flash_bf16(rng, floor_ms, shape):
     """One launch at a model's shape in bf16 (granite-moe-3b-a800m's prefill
     and training forward; deepseek-v3-671b's MLA prefill, whose v head is
     narrower; whisper-medium's encoder, decoder and cross-attention), its
     plain version and PyTorch's fused attention; and one call of the backward
-    kernels at the same shape beside their bound."""
+    kernels at the same shape beside their bound and PyTorch's fused
+    attention's backward."""
     b, sq, sk, h, hk, d, causal = shape
     q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.bfloat16, "cuda")
     ms, host_ms = time_launches(lambda: flash_attention_fwd(q, k, v, causal=causal), n_iter=20)
@@ -1652,8 +1729,9 @@ def time_flash_bf16(rng, floor_ms, shape):
     bwd_ms, _ = time_launches(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
                               n_iter=20)
     bwd_bnd, _ = bound_ms(*flash_bwd_cost(q, k, v, causal), rate)
+    lib_bwd_ms = sdpa_backward_ms(q, k, v, do, causal)
     row = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib_ms,
-               backward_ms=bwd_ms, backward_bound_ms=bwd_bnd)
+               backward_ms=bwd_ms, backward_bound_ms=bwd_bnd, library_backward_ms=lib_bwd_ms)
     emit("times", kernel="flash_attention_fwd", shape=list(shape), d_v=V_DIM[d], dtype="bfloat16",
          host_ms=host_ms, bytes=bytes_, flops=flops, bound_rate=rate_name,
          launch_floor_ms=floor_ms, library="torch.nn.functional.scaled_dot_product_attention",
@@ -1686,8 +1764,11 @@ TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, moments=1e-4, params_of_lr=1e-2)
 # preparation, the bf16 route's one kernel
 FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel",
                       "flash_attention_bf16_kernel")
-# the backward's three kernels: Delta, dK and dV, dQ
-FLASH_BWD_KERNEL_NAMES = ("flash_bwd_delta_kernel", "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+# the backward's kernels by name: the bf16 route's Delta, dK and dV, dQ (TMA +
+# wgmma), then the f32 route's
+FLASH_BWD_KERNEL_NAMES = ("flash_bwd_delta_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
+                          "flash_bwd_dq_bf16_kernel", "flash_bwd_delta_kernel",
+                          "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
 
 
 def numpy_params(cfg, seed):
@@ -1912,6 +1993,8 @@ def train_attention_check(dev, smi):
     lib_bwd_ms, _ = time_launches(lambda: torch.autograd.grad(ol, lleaves, dol, retain_graph=True),
                                   n_iter=10, warmup=2)
     del ol, lleaves
+    # and in f32, beside the f32 route's backward (the times phase's)
+    lib_bwd_f32_ms = sdpa_backward_ms(*(t.float() for t in (q, k, v, do)), causal, n_iter=5)
     bytes_, flops = flash_cost(q, k, v, causal)
     rate, rate_name = FLASH_RATE[q.dtype]
     bnd, by = bound_ms(bytes_, flops, rate)
@@ -1920,7 +2003,7 @@ def train_attention_check(dev, smi):
                         lse_ms=lse_ms, backward_ms=bwd_ms, library_backward_ms=lib_bwd_ms)
     out["bwd_times"] = dict(ms=bwd_kernel_ms, plain_ms=bwd_plain_ms, bound_ms=bwd_bnd,
                             bound_by=bwd_by, library_ms=lib_bwd_ms, host_ms=bwd_host_ms,
-                            entry_backward_ms=bwd_ms)
+                            entry_backward_ms=bwd_ms, library_f32_ms=lib_bwd_f32_ms)
     emit("train", part="b_times", nvidia_smi=smi, kernel="flash_attention_fwd",
          b_sq_sk_h_hk_d_causal=list(FLASH_FULL), dtype="bfloat16", host_ms=host_ms,
          bound_rate=rate_name, library="torch.nn.functional.scaled_dot_product_attention",
@@ -2022,6 +2105,8 @@ def train_run(dev, cfg, smi, phase="train"):
     busy = sum(device_ms.values())
     flash_ms = sum(v for k, v in device_ms.items() if any(f in k for f in FLASH_KERNEL_NAMES))
     bwd_ms = sum(v for k, v in device_ms.items() if any(f in k for f in FLASH_BWD_KERNEL_NAMES))
+    check(not busy or bwd_ms > 0, f"{phase}: no kernel of the profiled step is named as the "
+          f"flash backward's ({FLASH_BWD_KERNEL_NAMES}): {top(device_ms, 1, 10)}")
     summary.update(profiled_wall_ms=wall_ms, device_busy_ms=busy or None,
                    device_busy_share=busy / wall_ms if busy else None,
                    flash_kernel_ms=flash_ms if busy else None,
@@ -4290,7 +4375,12 @@ def main():
             shape=list(FLASH_FULL), dtype="bfloat16",
             library="the backward of torch.nn.functional.scaled_dot_product_attention",
             forward_with_lse_ms=train_attention["times"]["lse_ms"],
-            entry_backward_ms=train_attention["bwd_times"]["entry_backward_ms"])}
+            entry_backward_ms=train_attention["bwd_times"]["entry_backward_ms"],
+            library_f32_ms=train_attention["bwd_times"]["library_f32_ms"],
+            bf16_by_shape={label: dict(ms=times[f"flash_{label}"]["backward_ms"],
+                                       bound_ms=times[f"flash_{label}"]["backward_bound_ms"],
+                                       library_ms=times[f"flash_{label}"]["library_backward_ms"])
+                           for label in ("granite", "mla", *WHISPER_FLASH, *FLASH_TP_FAMILIES)})}
         print(json.dumps({"kernels": [
             dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errs[k],
                  ms=times[k]["ms"], plain_ms=times[k]["plain_ms"], bound_ms=times[k]["bound_ms"],

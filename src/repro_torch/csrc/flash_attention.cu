@@ -121,12 +121,9 @@
 //   the rounded reciprocal of max(l, 1e-30), and a row's quad of threads swap
 //   words so that each writes 16-byte pieces of the output row.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links libcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -134,12 +131,7 @@ constexpr int kWarps = 8;  // the f32 route's block, and the bf16 route's consum
 constexpr int kBQ = 16 * kWarps;  // query rows per block: 16 a warp
 constexpr int kThreads = 32 * kWarps;
 constexpr float kNegInf = -1e30f;  // the reference's sentinel, not -inf
-constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
 constexpr float kLn2 = 0.6931471805599453f;  // log(x) = log2(x) ln(2)
-
-struct Strides {  // in elements; the head dim is contiguous
-  long long b, s, h;
-};
 
 // The f32 route's tiles.
 template <int DQK, int DV>
@@ -167,14 +159,6 @@ __device__ __forceinline__ uint32_t tf32(float x) {
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
   big = tf32(x);
   small = tf32(x - __uint_as_float(big));
-}
-
-// wgmma's shared-memory operand: unswizzled, K-major; `lbo` bytes between the
-// two 16-byte halves of a k-step, `sbo` bytes between 8-row groups
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
-  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
-         (uint64_t)(sbo >> 4) << 32;
 }
 
 // d (+)= a b: m64nNk8, tf32 in, f32 out; a warpgroup's collective
@@ -260,17 +244,6 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[16][4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// until at most N of this warpgroup's committed groups are still running
-template <int N = 0>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 // Named barrier `id` over the two (consumer) warpgroups' threads: they take
 // turns at the tensor cores, each passing the turn once its products are issued.
 __device__ __forceinline__ void turn_wait(int id) {
@@ -278,41 +251,6 @@ __device__ __forceinline__ void turn_wait(int id) {
 }
 __device__ __forceinline__ void turn_pass(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
-}
-// keep the compiler from touching the accumulators while a wgmma runs
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R][4]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
-}
-
-// 2^x, flushing results below 2^-126 to 0 (the softmax's exp)
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
-// The ring's hand-offs: mbarriers that every thread of the block arrives on
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar))
-               : "memory");
-}
-// one arrival that also expects `bytes` of bulk copies to complete on it
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar)),
-               "r"(bytes)
-               : "memory");
 }
 // `bytes` (a multiple of 16) from global to shared by the copy engine,
 // completing on `bar`
@@ -324,28 +262,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       "l"(src), "r"(bytes), "r"((uint32_t)__cvta_generic_to_shared(bar))
       : "memory");
 }
-// until the barrier's phase of this parity has completed; a wait that never
-// ends traps instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = (uint32_t)__cvta_generic_to_shared(bar);
-  for (int i = 0; i < (1 << 26); ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 
 // The f32 route: the attention kernel, over tiles that the next kernel prepared.
 template <int DQK, int DV>
@@ -667,147 +583,6 @@ struct Bf16Cfg {
   static constexpr int kThreads = 3 * 128;  // the producer warpgroup, then two consumers
   static_assert(kStages >= 2, "two stages of K and V must fit beside Q");
 };
-
-// d (+)= a b: m64nNk16, bf16 in, f32 out, a and b in shared memory (K-major)
-template <int N>
-__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 8][4], uint64_t a, uint64_t b,
-                                              int scale_d);
-// d (+)= a b: m64nNk16, bf16 in, f32 out, a from registers (the A fragment),
-// b in shared memory MN-major (the transpose bit)
-template <int N>
-__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
-                                              uint64_t b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_ss<128>(float (&d)[16][4], uint64_t a, uint64_t b,
-                                                 int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
-        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
-        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
-        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
-        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs<16>(float (&d)[2][4], const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs<32>(float (&d)[4][4], const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs<64>(float (&d)[8][4], const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16_rs<128>(float (&d)[16][4], const uint32_t (&a)[4],
-                                                 uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
-        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
-        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
-        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
-        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
-        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
-        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
-        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
-        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
-        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-// wgmma's shared-memory operand in the swizzled layout that TMA writes with a
-// span of ROW bytes (128, 64 or 32): rows of ROW bytes, 8 rows to a swizzle
-// atom, `sbo` bytes between atoms; `lbo` bytes between the MN-major operand's
-// boxes (a K-major operand's k-steps stay inside one box row: there 16, unused)
-template <int ROW>
-__device__ __forceinline__ uint64_t sw_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t mode = ROW == 128 ? 1 : (ROW == 64 ? 2 : 3);
-  return smem_desc(p, lbo, sbo) | mode << 62;
-}
-
-// a box of a 4-d tensor map (coordinates innermost first) into shared memory
-// by TMA, completing on `bar`; elements outside the tensor arrive as zeros
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"((uint32_t)__cvta_generic_to_shared(bar))
-      : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void regs_down() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void regs_up() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
-}
 
 // The bf16 route: one persistent kernel, reading Q, K and V in place through
 // tensor maps over the (B, S, H, D) views (the source note above). Block c of
@@ -1208,55 +983,6 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
         }
       }
     }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime, so that the
-// library needs no link against libcuda; null if the driver lacks it
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a bf16 operand (B, S, H, D) at `base`, `st` its (batch,
-// seq, head) strides in elements: dims (D, S, H, B) innermost first, boxes of
-// `box_d` x `box_s` x 1 x 1 swizzled over `row` bytes. A unit dim's stride is
-// never applied; it is given as 16 bytes, which the encoder takes.
-int tensor_map(CUtensorMap* map, const void* base, int d, int s, int h, int b,
-               const long long* st, int box_d, int box_s, int row) {
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)s, (cuuint64_t)h, (cuuint64_t)b};
-  auto bytes = [](long long stride, int n) -> cuuint64_t {
-    return n > 1 ? (cuuint64_t)stride * 2 : 16;
-  };
-  const cuuint64_t strides[3] = {bytes(st[1], s), bytes(st[2], h), bytes(st[0], b)};
-  const cuuint32_t box[4] = {(cuuint32_t)box_d, (cuuint32_t)box_s, 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                 : (row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_32B);
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int DQK, int DV>

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/repro_torch_kernels/<name>-<hash>.so``
 under the repository root, with a plain C interface. The hash covers the
-source and the flags, so an edited source is rebuilt at its first use and an
+source, the headers beside it (``csrc/*.cuh``, which sources include) and the
+flags, so an edited source or header is rebuilt at its first use and an
 unchanged one is loaded as built. Nothing is compiled at import time.
 """
 
@@ -37,9 +38,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names) -> dict[str, dict]:

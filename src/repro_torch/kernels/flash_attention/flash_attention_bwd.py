@@ -4,16 +4,17 @@ The reference has no backward kernel: its training gradient is XLA's
 autodiff of the plain ``blockwise_attention`` (f32 throughout). Here it is
 ``csrc/flash_attention_bwd.cu``, three kernels and no atomics, so that the
 gradients are the same bits from run to run: Δ = rowsum(dO ∘ O); dK and dV,
-a block per (batch, KV head, key tile) walking the query heads of its group
-and the query tiles the mask leaves; dQ, a block per (batch, head, query
-tile) walking the key tiles. Each recomputes P = exp(S·scale − lse) from the
-forward's log-sum-exp (``flash_attention.flash_attention_fwd_lse``). Same
-layouts and masks as the forward: (B, S, H, D) read in place through
-strides, GQA by ``h // (H / Hk)``, causal top-left aligned, keys from
-``sk_valid`` on masked, (D, Dv) in ``HEAD_DIMS``. CUDA tensors go to the
-kernels; CPU tensors to the plain version below; meta tensors get the
-gradients' shapes and the operation count (``flash_bwd_flops``); any other
-device raises.
+a block owning a key tile and walking the query heads of its group and the
+query tiles the mask leaves; dQ, a block owning a query tile and walking the
+key tiles. Each recomputes P = exp(S·scale − lse) from the forward's
+log-sum-exp (``flash_attention.flash_attention_fwd_lse``). bf16 runs on the
+tensor cores (``wgmma`` fed by TMA, a producer warp and two consumer
+warpgroups, persistent blocks); f32 on the CUDA cores. Same layouts and
+masks as the forward: (B, S, H, D) read in place through strides, GQA by
+``h // (H / Hk)``, causal top-left aligned, keys from ``sk_valid`` on
+masked, (D, Dv) in ``HEAD_DIMS``. CUDA tensors go to the kernels; CPU
+tensors to the plain version below; meta tensors get the gradients' shapes
+and the operation count (``flash_bwd_flops``); any other device raises.
 """
 
 from __future__ import annotations
@@ -29,11 +30,14 @@ from repro_torch.kernels.flash_attention.flash_attention import _check
 _lib_handle = None
 
 
-def kernel_bwd_block(d_qk: int) -> int:
-    """The tile the kernels walk (queries for dK and dV, keys for dQ) at
-    this q/k head dim (``BwdCfg::BN`` in csrc/flash_attention_bwd.cu): 64,
-    or 32 above D 64, where the registers run short. The plain version
-    takes it as ``block_k``; it changes the result only by rounding."""
+def kernel_bwd_block(d_qk: int, dtype: torch.dtype) -> int:
+    """The key tile over which the dQ kernel sums at this q/k head dim and
+    input type (csrc/flash_attention_bwd.cu): bf16 (``QCfg::BN``) 128, or
+    64 above D 64; f32 (``F32Cfg::BN``) 64, or 32 above D 64, where the
+    registers run short. The plain version takes it as ``block_k``; it
+    changes the result only by rounding."""
+    if dtype == torch.bfloat16:
+        return 128 if d_qk <= 64 else 64
     return 64 if d_qk <= 64 else 32
 
 
@@ -157,7 +161,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal, sk_valid=None):
     counts calls on the card, one each (three kernels)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, sk_valid=sk_valid,
-                                         block_k=kernel_bwd_block(q.shape[-1]))
+                                         block_k=kernel_bwd_block(q.shape[-1], q.dtype))
     if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu (or meta), not {q.device}")
     if any(t.dim() != 4 for t in (q, k, v, o, do)):

@@ -98,16 +98,19 @@ def test_plain_lse_is_logsumexp_of_masked_scaled_scores(name):
     torch.testing.assert_close(lse3, lse.reshape(b * h, sq), rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("tile_of", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ["gqa_causal", "cross_24_over_40", "mla_192_128"])
-def test_plain_backward_blocks_and_tail_mask(name):
-    """Any key block gives the same gradients within f32 rounding; keys from
+def test_plain_backward_blocks_and_tail_mask(name, tile_of):
+    """The kernels' key tile for either route's type (``kernel_bwd_block``)
+    gives the same gradients as a small block within f32 rounding; keys from
     ``sk_valid`` on get zero gradients and leave the rest as if cut away."""
     b, sq, sk, h, hk, d, dv, causal = CASES[name]
     q, k, v, do = (torch.tensor(x) for x in case_inputs(name))
     o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, lse=True)
-    g64 = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, block_k=64)
+    tile = fb.kernel_bwd_block(d, DTYPES[tile_of][0])
+    g_tile = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, block_k=tile)
     g8 = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal, block_k=8)
-    for a, r in zip(g64, g8):
+    for a, r in zip(g_tile, g8):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-6)
     sv = sk - 7
     o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal, sk_valid=sv, lse=True)
@@ -118,6 +121,14 @@ def test_plain_backward_blocks_and_tail_mask(name):
     want = torch.autograd.grad(out, leaves, do)
     for a, r in zip((dq, dk[:, :sv], dv_[:, :sv]), want):
         torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_bwd_block_gives_each_route_its_tile():
+    """The dQ kernel's key tile: bf16 128, or 64 above D 64; f32 64, or 32."""
+    assert [fb.kernel_bwd_block(d, torch.bfloat16) for d in (16, 32, 64, 128, 192)] == [
+        128, 128, 128, 64, 64]
+    assert [fb.kernel_bwd_block(d, torch.float32) for d in (16, 32, 64, 128, 192)] == [
+        64, 64, 64, 32, 32]
 
 
 def test_plain_backward_rounds_p_and_ds_in_bf16():
