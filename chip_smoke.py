@@ -291,6 +291,8 @@ from repro_torch.kernels.flash_attention.flash_attention import (  # noqa: E402
     kernel_block_k)
 from repro_torch.kernels.flash_attention.flash_attention_bwd import (  # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_bwd_flops, kernel_bwd_block)
+from repro_torch.kernels.flash_attention.flash_attention_bwd import (  # noqa: E402
+    scratch_bytes as flash_attention_bwd_scratch)
 # the store entry is read off these modules where it is used, so that the
 # store path's timing and sync counts also run against a tree that lacks it
 from repro_torch.kernels.quant_page import quant_page as qp, ref as qp_ref  # noqa: E402
@@ -395,6 +397,13 @@ FLASH_TP_FAMILIES = {"tp2_whisper_enc": (2, 1500, 1500, 8, 8, 64, False),
                      "tp2_mla": (1, PROMPT, PROMPT, 64, 64, 192, True)}
 # tests/test_kernels.py::TestFlashAttention shapes, and one whose Sq and Sk are
 # not multiples of the kernel's 128-row tiles, with GQA and no causal mask
+# the backward's f32 shapes: check_flash_bwd's, and the default training
+# entry's (python -m repro_torch.launch.train: tinyllama's smoke variant in f32,
+# batch 16 x 128, 4 heads over 2 of 32)
+FLASH_BWD_SHAPES = {"full": FLASH_FULL, "granite": FLASH_GRANITE, "mla_train": FLASH_MLA_TRAIN,
+                    "mla_ragged": FLASH_MLA_RAGGED, **WHISPER_FLASH, **FLASH_TP,
+                    **FLASH_TP_FAMILIES}
+FLASH_BWD_F32_SHAPES = {**FLASH_BWD_SHAPES, "default_entry": (16, 128, 128, 4, 2, 32, True)}
 FLASH_SHAPES = [(2, 64, 64, 4, 4, 32, True), (1, 128, 128, 8, 2, 64, True),
                 (2, 33, 95, 4, 1, 16, False), (1, 257, 300, 2, 2, 128, True),
                 (3, 100, 170, 8, 2, 64, False)]
@@ -648,15 +657,27 @@ def phase_build():
     smem.restype = ctypes.c_int
     flash_smem = {f"D{d},{dv} {dt}": smem(d, dv, int(dt == "bf16")) for d, dv in HEAD_DIMS
                   for dt in ("f32", "bf16")}
-    bwd_smem = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    bwd_lib = build.load("flash_attention_bwd")
+    bwd_smem = bwd_lib.flash_attention_bwd_smem_bytes
     bwd_smem.restype = ctypes.c_int
     flash_bwd_smem = {
         f"{name}<{d}, {dv}>": bwd_smem(d, dv, int(dt == "bf16"), i) for d, dv in HEAD_DIMS
         for dt, names in (("bf16", ("flash_bwd_dkdv_bf16_kernel", "flash_bwd_dq_bf16_kernel")),
-                          ("f32", ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")))
+                          ("f32", ("flash_bwd_dkdv_f32_kernel", "flash_bwd_dq_f32_kernel")))
         for i, name in enumerate(names)}
+    # the wrapper allocates the backward's scratch by its own count: it must be
+    # the library's at every pair of head dims, ragged lengths and GQA included
+    scratch = bwd_lib.flash_attention_bwd_scratch_bytes
+    scratch.argtypes, scratch.restype = [ctypes.c_int] * 8, ctypes.c_longlong
+    for d, dv in HEAD_DIMS:
+        for dt in (torch.float32, torch.bfloat16):
+            for b, h, hk, sq, sk in ((4, 32, 4, 2048, 2048), (2, 8, 8, 300, 333), (1, 4, 2, 37, 40)):
+                want = scratch(b, h, hk, sq, sk, d, dv, int(dt == torch.bfloat16))
+                check(want == flash_attention_bwd_scratch(b, h, hk, sq, sk, d, dv, dt),
+                      f"backward scratch at {(b, h, hk, sq, sk, d, dv, dt)}: library {want}")
     emit("build", seconds=time.perf_counter() - t0, report=report,
          flash_dynamic_smem_bytes=flash_smem, flash_bwd_dynamic_smem_bytes=flash_bwd_smem,
+         flash_bwd_scratch_bytes_agree=True,
          ptxas_by_kernel={name: ptxas_by_kernel(r["ptxas"]) for name, r in report.items()})
 
 
@@ -860,8 +881,7 @@ def check_flash_bwd(dev, full_only):
     each gradient's largest plain entry; two calls bit-equal. Not on the
     main path: these launches are not counted."""
     rng = np.random.default_rng(8)
-    shapes = {"full": FLASH_FULL, "granite": FLASH_GRANITE, "mla_train": FLASH_MLA_TRAIN,
-              "mla_ragged": FLASH_MLA_RAGGED, **WHISPER_FLASH, **FLASH_TP, **FLASH_TP_FAMILIES}
+    shapes = FLASH_BWD_SHAPES
     if full_only:
         shapes = {k: shapes[k] for k in ("full", "mla_train")}
     worst = {}
@@ -1643,17 +1663,16 @@ def phase_times(dev):
          library_ms=lib_ms, library_host_ms=lib_host_ms, library_max_abs_err=lib_err)
     out["flash_attention_fwd"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
                                       library_ms=lib_ms)
-    # the training entry's launches in f32 (2-layer card-against-CPU steps):
-    # the forward with its log-sum-exp, and the backward on the CUDA cores
+    # the training entry's launches in f32 (the card-against-CPU steps and the
+    # default training entry): the forward with its log-sum-exp, and the
+    # backward (3xTF32) at each f32 shape of check_flash_bwd and the default
+    # entry's, beside SDPA's f32 backward
     lse_ms, _ = time_launches(lambda: flash_attention_fwd_lse(q, k, v, causal=causal), n_iter=20)
-    o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
-    do = normal(rng, o.shape, o.dtype, dev)
-    bwd_ms, bwd_host_ms = time_launches(
-        lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal), n_iter=5, warmup=2)
-    bwd_bnd, bwd_by = bound_ms(*flash_bwd_cost(q, k, v, causal))  # CUDA cores' f32 rate
-    emit("times", kernel="flash_attention_bwd", shape=list(FLASH_FULL), dtype="float32",
-         ms=bwd_ms, host_ms=bwd_host_ms, bound_ms=bwd_bnd, bound_by=bwd_by,
-         bound_rate="CUDA cores' f32, 67e12", forward_with_lse_ms=lse_ms)
+    emit("times", kernel="flash_attention_fwd_lse", shape=list(FLASH_FULL), dtype="float32",
+         ms=lse_ms)
+    del q, k, v, ql, kl, vl
+    out["flash_bwd_f32"] = {label: time_flash_bwd_f32(rng, label, shape)
+                            for label, shape in FLASH_BWD_F32_SHAPES.items()}
     # the two launches of a chunk at Table III's 1,024 lanes, the lanes' rows
     # drawn evenly over the rows and the drop row
     rows = []
@@ -1698,6 +1717,40 @@ def sdpa_backward_ms(q, k, v, do, causal, n_iter=20):
     ms, _ = time_launches(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
                           n_iter=n_iter, warmup=2)
     return ms
+
+
+def time_flash_bwd_f32(rng, label, shape):
+    """One f32 call of the backward kernels at ``shape``, beside its bound
+    (3xTF32, and the CUDA cores' f32 rate) and the backward
+    of PyTorch's fused attention in f32 (TF32 off, as phase_device sets it)."""
+    b, sq, sk, h, hk, d, causal = shape
+    q, k, v = flash_inputs(rng, b, sq, sk, h, hk, d, torch.float32, "cuda")
+    o, lse = flash_attention_fwd_lse(q, k, v, causal=causal)
+    do = normal(rng, o.shape, o.dtype, o.device)
+    ms, host_ms = time_launches(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+                                n_iter=5, warmup=2)
+    # what one call adds to the allocated bytes at its peak: the gradients
+    # and the scratch (the prepared tiles, in f32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    grads = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - before
+    del grads
+    cost = flash_bwd_cost(q, k, v, causal)
+    rate, rate_name = FLASH_RATE[torch.float32]
+    bnd, by = bound_ms(*cost, rate)
+    row = dict(ms=ms, bound_ms=bnd, bound_by=by, cuda_core_bound_ms=bound_ms(*cost)[0],
+               library_ms=sdpa_backward_ms(q, k, v, do, causal, n_iter=5),
+               call_peak_bytes=call_peak,
+               scratch_bytes=flash_attention_bwd_scratch(b, h, hk, sq, sk, d, V_DIM[d],
+                                                         torch.float32))
+    emit("times", kernel="flash_attention_bwd", shape=label, b_sq_sk_h_hk_d_causal=list(shape),
+         d_v=V_DIM[d], dtype="float32", host_ms=host_ms, bound_rate=rate_name,
+         library="the backward of torch.nn.functional.scaled_dot_product_attention (f32)",
+         **row)
+    return row
 
 
 def time_flash_bf16(rng, floor_ms, shape):
@@ -1765,10 +1818,12 @@ TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-5, moments=1e-4, params_of_lr=1e-2)
 FLASH_KERNEL_NAMES = ("flash_attention_fwd_kernel", "flash_prepare_kv_kernel",
                       "flash_attention_bf16_kernel")
 # the backward's kernels by name: the bf16 route's Delta, dK and dV, dQ (TMA +
-# wgmma), then the f32 route's
+# wgmma), then the f32 route's preparations (Q's side with Delta, K's) and
+# its dK and dV, dQ (3xTF32 wgmma from the prepared tiles)
 FLASH_BWD_KERNEL_NAMES = ("flash_bwd_delta_bf16_kernel", "flash_bwd_dkdv_bf16_kernel",
-                          "flash_bwd_dq_bf16_kernel", "flash_bwd_delta_kernel",
-                          "flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel")
+                          "flash_bwd_dq_bf16_kernel", "flash_bwd_prep_q_kernel",
+                          "flash_bwd_prep_kv_kernel", "flash_bwd_dkdv_f32_kernel",
+                          "flash_bwd_dq_f32_kernel")
 
 
 def numpy_params(cfg, seed):
@@ -1801,14 +1856,17 @@ def step1_param_gap(m_card, m_cpu, ocfg):
     return ocfg.lr * (r(m_card) - r(m_cpu)).abs()
 
 
-def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_card_vs_cpu"):
+def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_card_vs_cpu",
+                      time_steps=0):
     """(a) One make_train_step step of ``c`` in f32 (f32 parameters and
     dtype; TF32 off, as phase_device sets it), the same numpy-made parameters
     (from ``seed``) and batch (default: SyntheticLM's) on the card and on the
     CPU: loss, grad norm, and every updated moment and parameter (TRAIN_TOL).
     The errors are printed before they are checked; the flash launches of the
     card's step must be the forward's and remat's recompute's, and one
-    backward an attention. Returns the launches."""
+    backward an attention. With ``time_steps``, that many more steps on the
+    card, each timed between two synchronizes (host clock). Returns the
+    launches."""
     check(c.dtype == torch.float32, f"{c.arch} is held in f32, not {c.dtype}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     ocfg = optim.AdamWConfig(lr=TRAIN_CMP["lr"], warmup=1, total_steps=10)
@@ -1856,11 +1914,18 @@ def train_card_vs_cpu(dev, c, smi, batch=None, seed=7, phase="train", part="a_ca
                 params_max_abs_err_over_lr=worst["params"], tolerance_used=used,
                 params_moved_apart_over_lr_tenth=wide,
                 params_max_err_beyond_moments_over_lr=unexplained)
+    step_ms = []
+    for _ in range(time_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p_dev, s_dev, _ = step(p_dev, s_dev, {k: v.to(dev) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
     emit(phase, part=part, nvidia_smi=smi, arch=c.arch, n_layers=c.n_layers,
          n_enc_layers=c.n_enc_layers, d_model=c.d_model, dtype="float32", tf32=False,
          batch=int(batch["tokens"].shape[0]), seq=int(batch["tokens"].shape[1]), lr=ocfg.lr,
          loss=float(m_cpu["loss"]), grad_norm=float(m_cpu["grad_norm"]), tol=TRAIN_TOL,
-         errors=errs, launches=n)
+         errors=errs, launches=n, card_step_ms=step_ms)
     # the forward's flash launches, and remat's recompute's in the backward
     want = flash_per_forward(c) * (2 if c.remat else 1)
     check(n["flash_attention_fwd"] == want and n["flash_attention_bwd"] == flash_per_forward(c),
@@ -2139,7 +2204,8 @@ def train_resume(dev, cfg, smi):
 def phase_train(dev, cfg, smi):
     """Training on the card (see the module docstring, phase 9). Returns the
     main run's launch counts and the flash kernel's training-shape numbers."""
-    train_card_vs_cpu(dev, cfg.with_(n_layers=TRAIN_CMP["n_layers"], dtype=torch.float32), smi)
+    train_card_vs_cpu(dev, cfg.with_(n_layers=TRAIN_CMP["n_layers"], dtype=torch.float32), smi,
+                      time_steps=3)
     attention = train_attention_check(dev, smi)
     launches = train_run(dev, cfg, smi)
     train_resume(dev, cfg, smi)
@@ -4377,6 +4443,7 @@ def main():
             forward_with_lse_ms=train_attention["times"]["lse_ms"],
             entry_backward_ms=train_attention["bwd_times"]["entry_backward_ms"],
             library_f32_ms=train_attention["bwd_times"]["library_f32_ms"],
+            f32_by_shape=times["flash_bwd_f32"],
             bf16_by_shape={label: dict(ms=times[f"flash_{label}"]["backward_ms"],
                                        bound_ms=times[f"flash_{label}"]["backward_bound_ms"],
                                        library_ms=times[f"flash_{label}"]["library_backward_ms"])

@@ -2,14 +2,16 @@
 
 The reference has no backward kernel: its training gradient is XLA's
 autodiff of the plain ``blockwise_attention`` (f32 throughout). Here it is
-``csrc/flash_attention_bwd.cu``, three kernels and no atomics, so that the
+``csrc/flash_attention_bwd.cu``, kernels without atomics, so that the
 gradients are the same bits from run to run: Δ = rowsum(dO ∘ O); dK and dV,
 a block owning a key tile and walking the query heads of its group and the
 query tiles the mask leaves; dQ, a block owning a query tile and walking the
 key tiles. Each recomputes P = exp(S·scale − lse) from the forward's
-log-sum-exp (``flash_attention.flash_attention_fwd_lse``). bf16 runs on the
-tensor cores (``wgmma`` fed by TMA, a producer warp and two consumer
-warpgroups, persistent blocks); f32 on the CUDA cores. Same layouts and
+log-sum-exp (``flash_attention.flash_attention_fwd_lse``). Both routes run
+on the tensor cores with a producer warpgroup, consumer warpgroups and
+persistent blocks: bf16 on ``wgmma`` fed by TMA from the caller's strides;
+f32 as 3xTF32, from tiles that two preparation kernels first split and
+transpose into a scratch buffer (``scratch_bytes``). Same layouts and
 masks as the forward: (B, S, H, D) read in place through strides, GQA by
 ``h // (H / Hk)``, causal top-left aligned, keys from ``sk_valid`` on
 masked, (D, Dv) in ``HEAD_DIMS``. CUDA tensors go to the kernels; CPU
@@ -33,12 +35,46 @@ _lib_handle = None
 def kernel_bwd_block(d_qk: int, dtype: torch.dtype) -> int:
     """The key tile over which the dQ kernel sums at this q/k head dim and
     input type (csrc/flash_attention_bwd.cu): bf16 (``QCfg::BN``) 128, or
-    64 above D 64; f32 (``F32Cfg::BN``) 64, or 32 above D 64, where the
-    registers run short. The plain version takes it as ``block_k``; it
-    changes the result only by rounding."""
+    64 above D 64; f32 (``QF32Cfg::BN``) 64 at D 16, 32 at D 32 and 64, 8
+    above, where the resident tile leaves less shared memory. The plain
+    version takes it as ``block_k``; it changes the result only by
+    rounding."""
     if dtype == torch.bfloat16:
         return 128 if d_qk <= 64 else 64
-    return 64 if d_qk <= 64 else 32
+    return {16: 64, 32: 32, 64: 32}.get(d_qk, 8)
+
+
+SCRATCH_PAD = 128  # the f32 route's scratch rounds Sq and Sk up to this
+
+
+def scratch_layout(b: int, h: int, hk: int, sq: int, sk: int, d: int,
+                   dv: int) -> dict[str, tuple[int, int]]:
+    """The f32 route's scratch (``f32_scratch`` in csrc/flash_attention_bwd.cu)
+    as {array: (first word, words)}, in order: Δ and lse in log2 units, (B, H,
+    Sqp) each; Q and dO as rows and as tiles, (B, H, Sqp, D or Dv); K as rows,
+    V as rows, K as tiles, (B, Hk, Skp, D or Dv); each of the last seven a big
+    and then a small tf32 part. Sqp and Skp are Sq and Sk rounded up to
+    ``SCRATCH_PAD``, so that a copy of a whole tile stays in its (batch,
+    head)."""
+    sqp, skp = (-(-n // SCRATCH_PAD) * SCRATCH_PAD for n in (sq, sk))
+    rq, rk = b * h * sqp, b * hk * skp
+    sizes = {"delta": rq, "lse2": rq, "qr": 2 * rq * d, "dor": 2 * rq * dv, "qt": 2 * rq * d,
+             "dot": 2 * rq * dv, "kr": 2 * rk * d, "vr": 2 * rk * dv, "kt": 2 * rk * d}
+    out, at = {}, 0
+    for name, n in sizes.items():
+        out[name] = (at, n)
+        at += n
+    return out
+
+
+def scratch_bytes(b: int, h: int, hk: int, sq: int, sk: int, d: int, dv: int,
+                  dtype: torch.dtype) -> int:
+    """The kernels' scratch, which the launch takes as ``delta``
+    (``flash_attention_bwd_scratch_bytes`` in csrc/flash_attention_bwd.cu):
+    bf16, Δ, (B, H, Sq) f32; f32, ``scratch_layout``'s words."""
+    if dtype == torch.bfloat16:
+        return 4 * b * h * sq
+    return 4 * sum(n for _, n in scratch_layout(b, h, hk, sq, sk, d, dv).values())
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal, sk_valid=None, block_k=64):
@@ -120,12 +156,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
     dq, dk, dv = (torch.empty(t.shape, dtype=q.dtype, device=q.device) for t in (q, k, v))
     b, sq, h, d = q.shape
     _, sk, hk, _ = k.shape
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)  # rowsum(dO ∘ O)
+    # Δ = rowsum(dO ∘ O), and for f32 the prepared tiles
+    scratch = torch.empty(scratch_bytes(b, h, hk, sq, sk, d, v.shape[3], q.dtype),
+                          dtype=torch.uint8, device=q.device)
     ops = (q, k, v, o, do, dq, dk, dv)
     strides = (ctypes.c_longlong * 24)(*(st for t in ops for st in t.stride()[:3]))
     with torch.cuda.device(q.device):
         rc = _lib().flash_attention_bwd_launch(
-            *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, delta)), strides, b, h, hk,
+            *(t.data_ptr() for t in (q, k, v, o, lse, do, dq, dk, dv, scratch)), strides, b, h, hk,
             sq, sk, d, v.shape[3], sk_valid, int(causal), int(q.dtype == torch.bfloat16),
             d**-0.5, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:

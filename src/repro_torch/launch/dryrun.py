@@ -53,6 +53,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs import ARCHS, SHAPES, applicable
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels.flash_attention import flash_attention_bwd
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models import base, registry, ssm
 from repro_torch.parallel import sharding
@@ -88,12 +89,16 @@ def inside_bytes(func, args) -> int:
     backward makes the gradient's product with the output and copies a
     non-contiguous gradient, each as large as its input (the plain
     attention's f32 scores, where a window keeps it). The flash backward's
-    wrapper allocates Delta, B·H·Sq f32, inside its operator."""
+    wrapper allocates its scratch inside its operator: Δ, B·H·Sq f32, in
+    bf16; Δ and the prepared tiles in f32 (``flash_attention_bwd.scratch_bytes``)."""
     def nbytes(t):
         return t.numel() * t.element_size()
 
     if func is torch.ops.repro_torch.flash_attention_bwd.default:
-        return nbytes(args[4])  # Delta, as large as the log-sum-exp
+        q, k, v = args[:3]
+        b, sq, h, d = q.shape
+        return flash_attention_bwd.scratch_bytes(b, h, k.shape[2], sq, k.shape[1], d,
+                                                 v.shape[3], q.dtype)
     if func is torch.ops.aten._softmax.default:
         return 0 if args[0].is_contiguous() else nbytes(args[0])
     if func is torch.ops.aten._softmax_backward_data.default:

@@ -124,11 +124,46 @@ def test_plain_backward_blocks_and_tail_mask(name, tile_of):
 
 
 def test_kernel_bwd_block_gives_each_route_its_tile():
-    """The dQ kernel's key tile: bf16 128, or 64 above D 64; f32 64, or 32."""
+    """The dQ kernel's key tile: bf16 128, or 64 above D 64; f32 64 at D 16,
+    32 at D 32 and 64, 8 above."""
     assert [fb.kernel_bwd_block(d, torch.bfloat16) for d in (16, 32, 64, 128, 192)] == [
         128, 128, 128, 64, 64]
     assert [fb.kernel_bwd_block(d, torch.float32) for d in (16, 32, 64, 128, 192)] == [
-        64, 64, 64, 32, 32]
+        64, 32, 32, 8, 8]
+
+
+@pytest.mark.parametrize("shape", [(4, 32, 4, 2048, 2048, 64, 64), (2, 8, 8, 300, 333, 192, 128),
+                                   (1, 4, 2, 37, 40, 16, 16), (16, 4, 2, 128, 128, 32, 32)])
+def test_f32_scratch_layout_covers_every_tile_once(shape):
+    """The f32 route's scratch: its arrays follow one another from word 0 to
+    the end of ``scratch_bytes`` with no gap and no overlap; each is one (or,
+    with a small part, two) (batch, head) slices after another; and the
+    tiles the kernels copy from a slice (the 128 rows a block owns up to D
+    64, else 64, and the rows of a turn, 8 to 64) cover its rows from 0
+    without a gap or an overlap and stay inside it."""
+    b, h, hk, sq, sk, d, dv = shape
+    lay = fb.scratch_layout(b, h, hk, sq, sk, d, dv)
+    at = 0
+    for name, (first, words) in lay.items():
+        assert first == at and words > 0, name
+        at += words
+    assert 4 * at == fb.scratch_bytes(b, h, hk, sq, sk, d, dv, torch.float32)
+    sqp, skp = (-(-n // fb.SCRATCH_PAD) * fb.SCRATCH_PAD for n in (sq, sk))
+    assert sqp >= sq and skp >= sk and sqp % 128 == skp % 128 == 0
+    slices = {"delta": (b * h, sqp), "lse2": (b * h, sqp), "qr": (2 * b * h, sqp * d),
+              "dor": (2 * b * h, sqp * dv), "qt": (2 * b * h, sqp * d),
+              "dot": (2 * b * h, sqp * dv), "kr": (2 * b * hk, skp * d),
+              "vr": (2 * b * hk, skp * dv), "kt": (2 * b * hk, skp * d)}
+    for name, (n, words) in slices.items():
+        assert lay[name][1] == n * words, name
+    bm = 128 if d <= 64 else 64
+    for rows, owned in [(n, t) for n in (sq, sk) for t in (bm, 64, 32, 16, 8)]:
+        seen = np.zeros(max(sqp, skp), dtype=int)
+        for r0 in range(0, rows, owned):
+            seen[r0:r0 + owned] += 1
+        covered = -(-rows // owned) * owned
+        assert (seen[:covered] == 1).all() and not seen[covered:].any()
+        assert covered <= (sqp if rows == sq else skp)
 
 
 def test_plain_backward_rounds_p_and_ds_in_bf16():
@@ -255,10 +290,15 @@ def test_train_step_counts_the_backward_by_its_flops_on_meta():
 
 
 def test_dry_run_counts_delta_inside_the_backward():
-    """The backward's wrapper allocates Delta (B·H·Sq f32) inside its
-    operator, where no dispatch mode sees it: the dry run's tracker adds it
-    to the peak while the operator runs."""
-    q = torch.empty(2, 8, 4, 16, device="meta")
-    lse = torch.empty(2, 4, 8, device="meta")
-    args = (q, q[:, :, :2], q[:, :, :2], q, lse, q, 8, True)
-    assert dryrun.inside_bytes(torch.ops.repro_torch.flash_attention_bwd.default, args) == 256
+    """The backward's wrapper allocates its scratch inside its operator,
+    where no dispatch mode sees it: Delta (B·H·Sq f32) in bf16, Delta and the
+    f32 route's prepared tiles in f32. The dry run's tracker adds it to the
+    peak while the operator runs."""
+    op = torch.ops.repro_torch.flash_attention_bwd.default
+    for dt, want in ((torch.bfloat16, 256),
+                     (torch.float32, 4 * (2 * 4 * 128 * (2 + 4 * 16 + 4 * 16)
+                                          + 2 * 2 * 128 * (4 * 16 + 2 * 16)))):
+        q = torch.empty(2, 8, 4, 16, device="meta", dtype=dt)
+        lse = torch.empty(2, 4, 8, device="meta")
+        args = (q, q[:, :, :2], q[:, :, :2], q, lse, q, 8, True)
+        assert dryrun.inside_bytes(op, args) == want == fb.scratch_bytes(2, 4, 2, 8, 8, 16, 16, dt)

@@ -2,6 +2,8 @@
 library path names the bytes it was built from, so that an edited source or
 a header it includes is rebuilt at first use. Nothing is compiled here."""
 
+import re
+
 from repro_torch.kernels import build
 
 
@@ -34,8 +36,21 @@ def test_lib_path_counts_a_new_header(tmp_path, monkeypatch):
     assert build.lib_path("k") != first
 
 
+# a definition (not a call) of the 3xTF32 helpers: the split, the tf32
+# wgmma wrappers and the bulk copy
+_TF32_DEFS = re.compile(r"__device__ __forceinline__ (?:uint32_t|void)\s+"
+                        r"(tf32|split|wgmma_tf32(?:_ss)?|bulk_copy)\b")
+
+
 def test_the_port_sources_share_one_hopper_header():
-    """Both flash sources include csrc/hopper.cuh, which the hash covers."""
-    assert (build.CSRC / "hopper.cuh").exists()
+    """Both flash sources include csrc/hopper.cuh, which the hash covers;
+    the 3xTF32 helpers that both routes use (tf32, split, the wgmma tf32
+    wrappers, bulk_copy) are defined there, and in neither source."""
+    header = (build.CSRC / "hopper.cuh").read_text()
+    assert set(_TF32_DEFS.findall(header)) == {"tf32", "split", "wgmma_tf32", "wgmma_tf32_ss",
+                                               "bulk_copy"}
     for name in ("flash_attention", "flash_attention_bwd"):
-        assert '#include "hopper.cuh"' in (build.CSRC / f"{name}.cu").read_text()
+        text = (build.CSRC / f"{name}.cu").read_text()
+        assert '#include "hopper.cuh"' in text
+        assert _TF32_DEFS.findall(text) == [], name
+        assert "wgmma_tf32" in text and "split(" in text, name

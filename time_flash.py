@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Device times of the flash kernels' bf16 routes at the main path's shapes,
-for one or more builds of ``csrc/flash_attention.cu`` (the forward) or, with
-``--bwd``, of ``csrc/flash_attention_bwd.cu`` (the backward), beside
-PyTorch's ``scaled_dot_product_attention`` (its forward, or its backward),
-for pairing two trees in one call.
+"""Device times of the flash kernels at the main path's shapes, for one or
+more builds of ``csrc/flash_attention.cu`` (the forward) or, with ``--bwd``,
+of ``csrc/flash_attention_bwd.cu`` (the backward), beside PyTorch's
+``scaled_dot_product_attention`` (its forward, or its backward), for pairing
+two trees in one call.
 
 Run from the root of this tree, naming the sources to build (default: this
 tree's; another commit's with ``git archive`` unpacked into a git-ignored
@@ -15,15 +15,20 @@ Each source is built with the kernels' own nvcc flags into
 ``build/time_flash/`` and loaded in place of this tree's library; its C
 interface must be this tree's (``flash_attention_fwd_launch`` with a scratch
 buffer and ``flash_attention_scratch_bytes``; ``flash_attention_bwd_launch``
-with its Delta scratch). The inputs are drawn once per shape (numpy, seed 3)
-and shared by every build. Per shape, each build is timed in the order given
-and then in reverse (A, B, B, A), ``reps`` times each, by
-``chip_smoke.time_launches`` (CUDA events, L2 flushed, 20 launches); SDPA
-once. Each build's outputs on the shape's inputs are held against the first
-build's: bit-equal or not, and the largest difference. With ``--bwd`` the f32
-route's gradients are also held bit for bit against the first build's at
-three shapes. Prints one JSON line per shape. ``chip_smoke.py``'s
-``kernels`` phase holds the kernels against their plain versions.
+with its scratch, which this tree's wrapper sizes, at least the (B, H, Sq)
+f32 Delta an older build takes). The inputs are drawn once per shape (numpy,
+seed 3) and shared by every build. Per shape, each build is timed in the
+order given and then in reverse (A, B, B, A), ``reps`` times each, by
+``chip_smoke.time_launches`` (CUDA events, L2 flushed); SDPA once. Each
+build's outputs on the shape's inputs are held against the first build's:
+bit-equal or not, and the largest difference. The forward: bf16 at the
+``times`` phase's shapes, timed; f32 at the training shape, outputs only.
+The backward: bf16 at the same shapes, timed; then f32, timed, at every
+shape of ``chip_smoke.check_flash_bwd`` and the default training entry's,
+each build's gradients also held against the plain version (f64), beside
+SDPA's f32 backward. Prints one JSON line per shape and type.
+``chip_smoke.py``'s ``kernels`` phase holds the kernels against their plain
+versions.
 """
 
 from __future__ import annotations
@@ -97,20 +102,17 @@ def main():
     order = list(range(len(srcs))) + list(range(len(srcs)))[::-1]
 
     rng = np.random.default_rng(3)
-    if a.bwd:  # the f32 route, bit for bit against the first build
-        for label, (b, sq, sk, h, hk, d, causal) in (("train", c.FLASH_FULL),
-                                                      ("mla_ragged", c.FLASH_MLA_RAGGED),
-                                                      ("whisper_cross", c.FLASH_WHISPER_CROSS)):
-            q, k, v = c.flash_inputs(rng, b, sq, sk, h, hk, d, torch.float32, "cuda")
-            o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
-            do = c.normal(rng, o.shape, o.dtype, o.device)
-            outs = []
-            for lib in libs:
-                fb._lib_handle = lib
-                outs.append(fb.flash_attention_bwd(q, k, v, o, lse, do, causal=causal))
-            print(json.dumps({"f32_shape": label, "b_sq_sk_h_hk_d_causal": [b, sq, sk, h, hk, d, causal],
-                              "against_first": against_first(outs), "srcs": srcs}), flush=True)
-            del q, k, v, o, lse, do, outs
+    if not a.bwd:  # the f32 route, outputs against the first build's
+        b, sq, sk, h, hk, d, causal = c.FLASH_FULL
+        q, k, v = c.flash_inputs(rng, b, sq, sk, h, hk, d, torch.float32, "cuda")
+        outs = []
+        for lib in libs:
+            fa._lib_handle = lib
+            outs.append((fa.flash_attention_fwd(q, k, v, causal=causal),))
+        print(json.dumps({"f32_shape": "train", "b_sq_sk_h_hk_d_causal": list(c.FLASH_FULL),
+                          "kernel": name, "against_first": against_first(outs), "srcs": srcs}),
+              flush=True)
+        del q, k, v, outs
 
     shapes = {"train": c.FLASH_FULL, "granite": c.FLASH_GRANITE, "mla": c.FLASH_MLA,
               **c.WHISPER_FLASH, **c.FLASH_TP_FAMILIES}
@@ -156,6 +158,43 @@ def main():
                           "nvidia_smi": smi}), flush=True)
         del q, k, v, ql, kl, vl, outs
         torch.cuda.empty_cache()
+
+    if a.bwd:  # the f32 route
+        for label, (b, sq, sk, h, hk, d, causal) in c.FLASH_BWD_F32_SHAPES.items():
+            q, k, v = c.flash_inputs(rng, b, sq, sk, h, hk, d, torch.float32, "cuda")
+            o, lse = fa.flash_attention_fwd_lse(q, k, v, causal=causal)
+            do = c.normal(rng, o.shape, o.dtype, o.device)
+
+            def run():
+                return fb.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+            ms = {src: [] for src in srcs}
+            for i in order:
+                fb._lib_handle = libs[i]
+                ms[srcs[i]] += [c.time_launches(run, n_iter=5, warmup=2)[0]
+                                for _ in range(a.reps)]
+            outs = []
+            for lib in libs:
+                fb._lib_handle = lib
+                outs.append(run())
+            refs = fb.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                                block_k=fb.kernel_bwd_block(d, torch.float32))
+            plain_err = {src: {n: float((g.double() - r.double()).abs().max())
+                               for n, g, r in zip(("dq", "dk", "dv"), out, refs)}
+                         for src, out in zip(srcs, outs)}
+            cost = c.flash_bwd_cost(q, k, v, causal)
+            bound, by = c.bound_ms(*cost, c.FLASH_RATE[torch.float32][0])
+            print(json.dumps({"f32_shape": label, "b_sq_sk_h_hk_d_causal": [b, sq, sk, h, hk, d,
+                                                                            causal],
+                              "kernel": name, "ms": ms,
+                              "sdpa_backward_ms": c.sdpa_backward_ms(q, k, v, do, causal, n_iter=5),
+                              "bound_ms": bound, "bound_by": by,
+                              "cuda_core_bound_ms": c.bound_ms(*cost)[0],
+                              "max_abs_err_from_plain_f64": plain_err,
+                              "against_first": against_first(outs), "nvidia_smi": smi}),
+                  flush=True)
+            del q, k, v, o, lse, do, outs, refs
+            torch.cuda.empty_cache()
     mod._lib_handle = None
 
 
