@@ -22,7 +22,14 @@ name and wall seconds; their total on the line before the last):
               the tier pools, every pool tensor exact); ordered_scatter_add bit for
               bit against the CPU's serial index_add_ on the same lanes, at the obs
               sums' rows (64 x 9 and 192 x 6) and 1, 128 and 1,024 lanes, with
-              duplicates and drops, every lane to one row, every lane dropped;
+              duplicates and drops, every lane to one row, every lane dropped, and
+              its pair entry (both sums in one launch, obs_lat_comp in the state's
+              (mode, component, bin) layout) on the lanes drawn evenly, every lane
+              to one row, 0, 1 and 128 lanes, two rows, unaligned sources, and the
+              real chunks (the first 8 of ssd (b) and of a closed-loop Table III
+              run at obs "full", captured by a hook), with PyTorch's deterministic
+              index_put_(accumulate=True) and index_add_ against the same lane
+              order (printed, not held);
               flash attention's backward (kernels for Delta, dK and dV, dQ)
               against its plain version on the same q, k, v, output, log-sum-exp
               and cotangent, f32 within 1e-5 and bf16 within 2^-6 of each
@@ -59,7 +66,12 @@ name and wall seconds; their total on the line before the last):
               whisper's encoder and cross-attention in bf16)
               one PyTorch call that computes the same function; the
               store path's whole calls (the store with its pool copies, append,
-              raro_step): device ms, host enqueue ms, and ms per call back to back
+              raro_step): device ms, host enqueue ms, and ms per call back to back;
+              ordered_scatter_add's pair on the lanes drawn evenly, every lane to
+              one row and the real chunks, beside the single-launch kernel it
+              replaced (built from git's copy of its source, where there is one),
+              PyTorch's scatter-adds and the chain bound (launch floor + the
+              longest row's hits x 4 cycles at the maximum SM clock)
   8. profile  torch.profiler over a few full-width RARO steps, and over one
               full-width prefill: the device's busy share and the kernels and host
               ops that take the time
@@ -114,8 +126,9 @@ name and wall seconds; their total on the line before the last):
               against CPU, every chunk by the strict rule and obs_ts and
               obs_lat_comp bit for bit, after the same run with the former one-hot
               sums, whose gaps are printed. The obs float sums run the
-              ordered_scatter_add kernel (2 launches a chunk at obs_level "full",
-              1 at "counters", counted per run); the rest are plain PyTorch ops
+              ordered_scatter_add kernel (1 launch a chunk at obs_level "full",
+              both sums, and 1 at "counters", counted per run); the rest are plain
+              PyTorch ops
  12. sweep    the experiment sweep (experiments.sweep.run_sweep) on the card:
               (a) configs/raro_ssd.py's tail_latency_sweep() whole (Table III
               geometry, read_disturb_hammer, 80,000 requests, Baseline and RARO
@@ -257,6 +270,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import json
 import math
 import os
@@ -302,7 +316,8 @@ from repro_torch.kernels.tiered_attention.tiered_attention import (  # noqa: E40
     tiered_decode_partial, tiered_decode_partial_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention_train  # noqa: E402
 from repro_torch.kernels.ordered_scatter_add.ordered_scatter_add import (  # noqa: E402
-    ordered_scatter_add, ordered_scatter_add_plain)
+    ordered_scatter_add, ordered_scatter_add_pair, ordered_scatter_add_pair_plain,
+    ordered_scatter_add_plain)
 from repro_torch.kvcache import paged, tiers  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
@@ -418,6 +433,16 @@ ORDERED_TIME_LANES = 1024  # the main path's chunk (Table III geometry)
 # the kernel's other paths: rows of 128 (four columns a thread), more lanes
 # than one tile of shared memory holds, rows wider than a warp, no lanes
 ORDERED_EDGES = [(7, 128, 300), (5, 1, 9000), (300, 33, 2000), (3, 2, 0)]
+# the pair's inputs: (i) the lanes drawn evenly over the rows and the drop
+# row, (ii) every lane of each segment to one row, at Table III's 1,024
+# lanes; (iii) the real chunks (real_chunks)
+ORDERED_DRAWS = {"i_even": "mixed", "ii_one_row": "one_row"}
+ORDERED_REAL_CHUNKS = 8  # first chunks of each run whose obs sums are captured
+# the single-launch kernel before the pair (git's copy of its source, built
+# into the git-ignored build/cmp/ beside this tree's kernels), timed beside it
+ORDERED_BEFORE = ("119ad15", "src/repro_torch/csrc/ordered_scatter_add.cu")
+ORDERED_BEFORE_SRC = ROOT / "build" / "cmp" / "ordered_scatter_add_before.cu"
+FADD_CYCLES = 4  # a dependent FP32 add's latency on the SM (CUDA C++ Programming Guide, 7.x+)
 
 KERNELS = {
     "tiered_decode_partial": dict(
@@ -610,13 +635,156 @@ def ordered_inputs(rng, rows, cols, lanes, dev, how="mixed"):
     mixed magnitudes, so that the order of the adds shows in the rounding.
     ``how``: "mixed" indices with duplicates and drops (as ``ops.drop_index``
     leaves them: a dropped lane names row ``rows``); "one_row" every lane to
-    row 1; "dropped" every lane past the end."""
+    row 1; "two_rows" each lane to row 1 or 2; "dropped" every lane past the
+    end."""
     dst = (rng.standard_normal((rows, cols)) * 1e3).astype(np.float32)
     src = (rng.standard_normal((lanes, cols))
            * 10.0 ** rng.integers(-4, 5, (lanes, cols))).astype(np.float32)
     idx = {"mixed": rng.integers(0, rows + 1, lanes), "one_row": np.ones(lanes),
+           "two_rows": rng.integers(1, 3, lanes),
            "dropped": np.full(lanes, rows)}[how].astype(np.int64)
     return [torch.from_numpy(a).to(dev) for a in (dst, idx, src)]
+
+
+def pair_inputs(rng, lanes, dev, how="mixed"):
+    """A chunk's two segments as record_reads hands them to the pair:
+    obs_ts (64 x 9) and obs_lat_comp, drawn in the state's (3 modes, 6
+    components, 64 bins) layout and taken as its (mode, bin, component)
+    view, whose rows are the (mode, bin) pairs; lanes as ordered_inputs
+    draws them."""
+    ts = tuple(ordered_inputs(rng, *ORDERED_ROWS["obs_ts"], lanes, dev, how))
+    rows, idx, src = ordered_inputs(rng, *ORDERED_ROWS["obs_lat_comp"], lanes, dev, how)
+    comp = rows.reshape(3, 64, 6).permute(0, 2, 1).contiguous().permute(0, 2, 1)
+    return ts, (comp, idx, src)
+
+
+def kernel_segment(dst, idx, src):
+    """A segment of ``ops.at_add_in_order_pair`` as it reaches the kernel:
+    dst as given (a copy), indices with the dropped lanes at the row past
+    the end, the lanes' rows contiguous."""
+    n = dst.numel() // dst.shape[-1]
+    return (dst.clone(), port_ops.drop_index(idx, n).reshape(-1),
+            port_ops._rows(src, idx, dst, dst.shape[-1:]).contiguous())
+
+
+def max_hits(idx, n):
+    """The most lanes that name one row of [0, n)."""
+    kept = idx[(idx >= 0) & (idx < n)]
+    return int(torch.bincount(kept, minlength=n).max()) if kept.numel() else 0
+
+
+def seg_rows(seg):
+    """A segment with its dst as contiguous (rows, C): how the kernel before
+    the pair took it (obs_lat_comp permuted and copied around it)."""
+    dst, idx, src = seg
+    return dst.reshape(-1, dst.shape[-1]), idx, src
+
+
+@contextlib.contextmanager
+def deterministic():
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def library_sums(dst, idx, src):
+    """PyTorch's own scatter-adds of a segment's rows (dst (N, C), idx with
+    its drops at N) under ``torch.use_deterministic_algorithms(True)``:
+    ``index_put_(accumulate=True)`` and ``index_add_``, each into a copy
+    with the drop row. Never called by the port."""
+    n = dst.shape[0]
+    ext = torch.cat([dst, dst.new_zeros((1, dst.shape[1]))])
+    with deterministic():
+        return {"index_put_": ext.clone().index_put_((idx,), src, accumulate=True)[:n],
+                "index_add_": ext.clone().index_add_(0, idx, src)[:n]}
+
+
+_REAL_CHUNKS: list = []
+
+
+def real_chunks(dev):
+    """(iii): the obs sums of real chunks as the pair takes them, captured
+    by a hook that wraps ``ops.at_add_in_order_pair`` (record_reads' call at
+    obs "full"): the first ORDERED_REAL_CHUNKS chunks of the ssd phase's
+    (b) (open loop, lattice) and of the closed-loop Table III run of RARO at
+    obs "full" (the ssd phase's (a) trace). Entries (run, chunk, a, b),
+    each segment as the kernel takes it (kernel_segment); taken once, until
+    time_ordered lets them go."""
+    if _REAL_CHUNKS:
+        return _REAL_CHUNKS
+    closed = replace(raro_ssd.MIDDLE, policy=ssd_geometry.RARO, obs_level="full")
+    runs = (("b_openloop", *ssd_openloop()),
+            ("closed_loop", closed, ssd_workload.zipf_read_trace(closed, SSD_REQUESTS, 1.2,
+                                                                 seed=1)))
+    real = port_ops.at_add_in_order_pair
+    for run, cfg, trace in runs:
+        got = []
+
+        def hook(a, b, got=got):
+            got.append((kernel_segment(*a), kernel_segment(*b)))
+            return real(a, b)
+
+        port_ops.at_add_in_order_pair = hook
+        try:
+            ssd_engine.run(cfg, {k: v[:ORDERED_REAL_CHUNKS] for k, v in trace.items()},
+                           device=dev)
+        finally:
+            port_ops.at_add_in_order_pair = real
+        check(len(got) == ORDERED_REAL_CHUNKS, f"(iii) {run}: {len(got)} obs sums captured")
+        _REAL_CHUNKS.extend((run, i, a, b) for i, (a, b) in enumerate(got))
+    return _REAL_CHUNKS
+
+
+def earlier_ordered_source():
+    """The kernel before the pair: its source under build/cmp/, put there
+    from git's copy (ORDERED_BEFORE) if it is not there yet; None where
+    neither is at hand (a checkout without git's history)."""
+    if not ORDERED_BEFORE_SRC.exists():
+        rev, path = ORDERED_BEFORE
+        try:
+            text = subprocess.run(["git", "-C", str(ROOT), "show", f"{rev}:{path}"],
+                                  capture_output=True, text=True, check=True, timeout=60).stdout
+        except (OSError, subprocess.SubprocessError):
+            return None
+        ORDERED_BEFORE_SRC.parent.mkdir(parents=True, exist_ok=True)
+        ORDERED_BEFORE_SRC.write_text(text)
+    return ORDERED_BEFORE_SRC
+
+
+def start_earlier_build():
+    """nvcc on the kernel before the pair, with the kernels' flags, into
+    build/cmp/; returns a function that waits for it and gives its ctypes
+    launch (dst, idx, src, out, N, C, L, stream), or None without a source."""
+    src = earlier_ordered_source()
+    if src is None:
+        return lambda: None
+    out = src.with_suffix(".so")
+    proc = subprocess.Popen([build._nvcc(), *build.FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        log, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed for {src}:\n{log}")
+        fn = ctypes.CDLL(str(out)).ordered_scatter_add_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        return fn
+    return finish
+
+
+EARLIER_ORDERED: dict = {}  # "launch": the kernel before the pair, once built
+
+
+def earlier_launch(fn, dst, idx, src):
+    """One launch of the kernel before the pair on one segment's rows."""
+    out = torch.empty_like(dst)
+    rc = fn(dst.data_ptr(), idx.data_ptr(), src.data_ptr(), out.data_ptr(), dst.shape[0],
+            dst.shape[1], idx.shape[0], torch.cuda.current_stream().cuda_stream)
+    check(rc == 0, f"the earlier ordered kernel's launch failed: CUDA error {rc}")
+    return out
 
 
 def ordered_cost(dst, idx, src):
@@ -651,8 +819,11 @@ def phase_device():
 
 def phase_build():
     t0 = time.perf_counter()
+    earlier = start_earlier_build()
     report = build.build(["tiered_attention", "quant_page", "flash_attention",
                           "ordered_scatter_add", "flash_attention_bwd"])
+    if (fn := earlier()) is not None:
+        EARLIER_ORDERED["launch"] = fn
     smem = build.load("flash_attention").flash_attention_smem_bytes
     smem.restype = ctypes.c_int
     flash_smem = {f"D{d},{dv} {dt}": smem(d, dv, int(dt == "bf16")) for d, dv in HEAD_DIMS
@@ -676,6 +847,7 @@ def phase_build():
                 check(want == flash_attention_bwd_scratch(b, h, hk, sq, sk, d, dv, dt),
                       f"backward scratch at {(b, h, hk, sq, sk, d, dv, dt)}: library {want}")
     emit("build", seconds=time.perf_counter() - t0, report=report,
+         earlier_ordered_scatter_add=str(ORDERED_BEFORE_SRC) if EARLIER_ORDERED else None,
          flash_dynamic_smem_bytes=flash_smem, flash_bwd_dynamic_smem_bytes=flash_bwd_smem,
          flash_bwd_scratch_bytes_agree=True,
          ptxas_by_kernel={name: ptxas_by_kernel(r["ptxas"]) for name, r in report.items()})
@@ -917,13 +1089,51 @@ def check_flash_bwd(dev, full_only):
     return worst
 
 
+# check_ordered's PyTorch scatter-adds against the lane order: bit-equal on
+# every case, and the largest gap
+ORDERED_LIBRARY_GAPS: dict = {}
+
+
+def pair_cases(rng, dev, full_only):
+    """check_ordered's pair inputs: (label, a, b). (i) and (ii) at 1,024
+    lanes and (iii); unless ``full_only`` also 0, 1 and 128 lanes, every
+    lane dropped, two rows, and sources not 16-byte aligned at an odd
+    number of lanes (the kernel's plain loads)."""
+    cases = [(label, *pair_inputs(rng, ORDERED_TIME_LANES, dev, how))
+             for label, how in ORDERED_DRAWS.items()]
+    if not full_only:
+        cases += [(f"L{n}", *pair_inputs(rng, n, dev)) for n in (0, 1, 128)]
+        cases += [(how, *pair_inputs(rng, ORDERED_TIME_LANES, dev, how))
+                  for how in ("dropped", "two_rows")]
+        # one lane past a 16-byte boundary: idx 8 bytes, src 36 and 24 bytes off
+        a, b = pair_inputs(rng, ORDERED_TIME_LANES - 1, dev)
+        cases.append(("unaligned", *[(d, torch.cat([i[:1], i])[1:], torch.cat([v[:1], v])[1:])
+                                     for d, i, v in (a, b)]))
+    cases += [(f"iii_{run}_{i}", a, b) for run, i, a, b in real_chunks(dev)]
+    return cases
+
+
 def check_ordered(dev, full_only):
     """The kernel against its plain version on the CPU (serial ``index_add_``,
-    the reference's lane order) on the same lanes, bit for bit: both
-    instruments' rows at 1, 128 and 1,024 lanes with duplicates and drops,
-    every lane to one row, every lane dropped, and ORDERED_EDGES; ``dst``
-    left as it was."""
+    the reference's lane order) on the same lanes, bit for bit, every input
+    left as it was. One segment: both instruments' rows at 1, 128 and 1,024
+    lanes with duplicates and drops, every lane to one row, every lane
+    dropped, and ORDERED_EDGES. The pair, one launch (pair_cases): obs_ts
+    with obs_lat_comp in the state's (mode, component, bin) layout, each out
+    in its dst's strides. Beside each, PyTorch's deterministic scatter-adds
+    (library_sums) against the same lane order: their largest gaps are kept
+    in ORDERED_LIBRARY_GAPS, not held."""
     rng = np.random.default_rng(5)
+    gaps = {name: dict(bit_equal=True, max_abs_gap=0.0) for name in ("index_put_", "index_add_")}
+
+    def library_gap(seg, want):
+        for name, got in library_sums(*seg).items():
+            got = got.cpu()
+            gaps[name]["bit_equal"] &= torch.equal(got, want)
+            if want.numel():
+                gaps[name]["max_abs_gap"] = max(gaps[name]["max_abs_gap"],
+                                                float((got - want).abs().max()))
+
     cases = [(name, rc, lanes, "mixed") for name, rc in ORDERED_ROWS.items()
              for lanes in (ORDERED_LANES[-1:] if full_only else ORDERED_LANES)]
     cases += [("obs_lat_comp", ORDERED_ROWS["obs_lat_comp"], ORDERED_LANES[-1], how)
@@ -939,8 +1149,28 @@ def check_ordered(dev, full_only):
         check(torch.equal(out.cpu(), want), f"ordered_scatter_add {name} L={lanes} {how}: "
               f"{float((out.cpu() - want).abs().max())} from the CPU's lane order")
         check(torch.equal(dst, before), f"ordered_scatter_add {name}: dst was written")
+        library_gap((dst, idx, src), want)
         emit("kernels", kernel="ordered_scatter_add", rows=[rows, cols], lanes=lanes, idx=how,
              bit_equal_to_cpu=True)
+    for label, a, b in pair_cases(rng, dev, full_only):
+        before = [t.clone() for t in (*a, *b)]
+        outs = ordered_scatter_add_pair(a, b)
+        torch.cuda.synchronize()
+        wants = ordered_scatter_add_pair_plain(*[tuple(t.cpu() for t in seg) for seg in (a, b)])
+        for name, out, want, seg in zip(OBS_SUMS, outs, wants, (a, b)):
+            check(torch.equal(out.cpu(), want) and out.stride() == seg[0].stride(),
+                  f"ordered_scatter_add pair {label} {name}: "
+                  f"{float((out.cpu() - want).abs().max()) if want.numel() else 0.0} from the "
+                  f"CPU's lane order, strides {out.stride()} for {seg[0].stride()}")
+            library_gap(seg_rows(seg), want.reshape(-1, want.shape[-1]))
+        check(all(torch.equal(t, t0) for t, t0 in zip((*a, *b), before)),
+              f"ordered_scatter_add pair {label}: an input was written")
+        emit("kernels", kernel="ordered_scatter_add", entry="pair", input=label,
+             lanes=[a[1].numel(), b[1].numel()],
+             max_hits=[max_hits(i, d.numel() // d.shape[-1]) for d, i, _ in (a, b)],
+             bit_equal_to_cpu=True)
+    ORDERED_LIBRARY_GAPS.update(gaps)
+    emit("kernels", kernel="ordered_scatter_add", deterministic_library_against_lane_order=gaps)
     return 0.0
 
 
@@ -1477,19 +1707,22 @@ def phase_profile_prefill(dev, cfg, batch=4, prompt=PROMPT):
          top_device_ms=top(device_ms, 1, 10), top_host_inclusive_ms=top(cpu_ms, 1, 10))
 
 
-def time_launches(fn, n_iter=50, warmup=5):
+def time_launches(fn, n_iter=50, warmup=5, median=False):
     """(device ms, host ms) per call. Each call is timed alone by CUDA events,
     with the L2 cache flushed (a 256 MB write) before it. The card is first held
     in a spin (``torch.cuda._sleep``) for about three times the host's time per
     call, so the host enqueues the whole call behind it and the events time the
-    device's work only; the host's enqueue time is taken on its own clock."""
+    device's work only; the host's enqueue time is taken on its own clock.
+    The mean of the calls, or with ``median`` their median device ms (for
+    launches of microseconds, where one call that the host holds past the
+    spin would move the mean)."""
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     cycles = int(max((time.perf_counter() - t0) / warmup, 1e-4) * 3 * 2e9)  # clocks <= 2 GHz
-    device_ms = host_s = 0.0
+    device_ms, host_s = [], 0.0
     for _ in range(n_iter):
         flush.zero_()
         torch.cuda._sleep(cycles)
@@ -1500,8 +1733,9 @@ def time_launches(fn, n_iter=50, warmup=5):
         host_s += time.perf_counter() - t
         b.record()
         b.synchronize()
-        device_ms += a.elapsed_time(b)
-    return device_ms / n_iter, host_s * 1e3 / n_iter
+        device_ms.append(a.elapsed_time(b))
+    ms = float(np.median(device_ms)) if median else sum(device_ms) / n_iter
+    return ms, host_s * 1e3 / n_iter
 
 
 def time_call(fn, n_iter=20):
@@ -1673,33 +1907,103 @@ def phase_times(dev):
     del q, k, v, ql, kl, vl
     out["flash_bwd_f32"] = {label: time_flash_bwd_f32(rng, label, shape)
                             for label, shape in FLASH_BWD_F32_SHAPES.items()}
-    # the two launches of a chunk at Table III's 1,024 lanes, the lanes' rows
-    # drawn evenly over the rows and the drop row
-    rows = []
-    for name, (r, c) in ORDERED_ROWS.items():
-        dst, idx, src = ordered_inputs(rng, r, c, ORDERED_TIME_LANES, dev)
-        ms, host_ms = time_launches(lambda: ordered_scatter_add(dst, idx, src))
-        plain, plain_host_ms = time_launches(lambda: ordered_scatter_add_plain(dst, idx, src))
-        ext = torch.cat([dst, dst.new_zeros((1, c))])
-        # the yardstick, never called by the port: one index_add_ on CUDA (atomic adds,
-        # in no fixed order), out of place into dst with its drop row
-        lib_ms, lib_host_ms = time_launches(lambda: torch.index_add(ext, 0, idx, src))
-        bytes_, flops = ordered_cost(dst, idx, src)
-        bnd, by = bound_ms(bytes_, flops)
-        rows.append(dict(ms=ms, plain_ms=plain, bytes=bytes_, flops=flops, library_ms=lib_ms))
-        emit("times", kernel="ordered_scatter_add", rows=[r, c], lanes=ORDERED_TIME_LANES,
-             ms=ms, host_ms=host_ms, plain_ms=plain, plain_host_ms=plain_host_ms, bytes=bytes_,
-             flops=flops, bound_ms=bnd, bound_by=by, launch_floor_ms=floor_ms,
-             library="torch.index_add (CUDA atomics, no fixed order)", library_ms=lib_ms,
-             library_host_ms=lib_host_ms)
-    out["ordered_scatter_add"] = dict(
-        _mean_row([{k: v for k, v in r.items() if k != "library_ms"} for r in rows]),
-        library_ms=sum(r["library_ms"] for r in rows) / len(rows))
+    out["ordered_scatter_add"] = time_ordered(dev, floor_ms)
     out["flash_granite"] = time_flash_bf16(rng, floor_ms, FLASH_GRANITE)
     out["flash_mla"] = time_flash_bf16(rng, floor_ms, FLASH_MLA)
     for label, shape in (*WHISPER_FLASH.items(), *FLASH_TP_FAMILIES.items()):
         out[f"flash_{label}"] = time_flash_bf16(rng, floor_ms, shape)
     return out
+
+
+def sm_clocks_mhz():
+    """nvidia-smi's current and maximum SM clock of card 0, MHz."""
+    line = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                           "--format=csv,noheader,nounits", "--id=0"],
+                          capture_output=True, text=True, check=True).stdout
+    cur, top = (float(x) for x in line.split(","))
+    return cur, top
+
+
+def time_pair(label, a, b, earlier, floor_ms, clock_mhz, max_clock_mhz):
+    """time_ordered's row of one input (label, segments a and b): medians of
+    50 calls."""
+    def timed_ms(fn):
+        return time_launches(fn, median=True)
+
+    flat = [seg_rows(seg) for seg in (a, b)]
+    ext = [(torch.cat([d, d.new_zeros((1, d.shape[1]))]), i, v) for d, i, v in flat]
+    ms, host_ms = timed_ms(lambda: ordered_scatter_add_pair(a, b))
+    plain, _ = timed_ms(lambda: ordered_scatter_add_pair_plain(a, b))
+    was = None if earlier is None else [
+        timed_ms(lambda seg=seg: earlier_launch(earlier, *seg))[0] for seg in flat]
+    atomics, _ = timed_ms(lambda: [torch.index_add(e, 0, i, v) for e, i, v in ext])
+    with deterministic():
+        put, _ = timed_ms(
+            lambda: [torch.index_put(e, (i,), v, accumulate=True) for e, i, v in ext])
+        add_, _ = timed_ms(lambda: [torch.index_add(e, 0, i, v) for e, i, v in ext])
+    hits = max(max_hits(i, d.shape[0]) for d, i, _ in flat)
+    costs = [ordered_cost(*seg) for seg in flat]
+    bytes_, flops = sum(c[0] for c in costs), sum(c[1] for c in costs)
+    bnd, by = bound_ms(bytes_, flops)
+    chain = floor_ms + hits * FADD_CYCLES / (max_clock_mhz * 1e3)
+    row = dict(ms=ms, host_ms=host_ms, was_ms=None if was is None else sum(was),
+               was_launches_ms=was, plain_ms=plain, index_add_atomics_ms=atomics,
+               deterministic_index_put_ms=put, deterministic_index_add_ms=add_, max_hits=hits,
+               bytes=bytes_, flops=flops, bound_ms=bnd, bound_by=by, chain_bound_ms=chain,
+               over_chain_bound=ms / chain)
+    emit("times", kernel="ordered_scatter_add", entry="pair", input=label,
+         lanes=[a[1].numel(), b[1].numel()], launch_floor_ms=floor_ms,
+         sm_clock_mhz=clock_mhz, max_sm_clock_mhz=max_clock_mhz, **row)
+    return row
+
+
+def time_ordered(dev, floor_ms):
+    """The pair's one launch a chunk on (i), (ii) and (iii) (medians of 50
+    calls, each timed as time_launches times it), each beside: the
+    kernel before the pair (EARLIER_ORDERED: two launches, obs_lat_comp as
+    contiguous rows, the copies around it not counted), the plain pair (two
+    index_add_ on the card, in no fixed order), ``torch.index_add`` (atomics)
+    and the deterministic library_sums, each a call a segment. Per input the
+    longest row's hits and the chain bound: the launch floor plus those hits
+    x FADD_CYCLES at nvidia-smi's maximum SM clock. Returns the kernels
+    line's row: the mean over (iii), the real chunks."""
+    clock_mhz, max_clock_mhz = sm_clocks_mhz()
+    rng = np.random.default_rng(3)
+    inputs = [(label, *pair_inputs(rng, ORDERED_TIME_LANES, dev, how))
+              for label, how in ORDERED_DRAWS.items()]
+    inputs += [(f"iii_{run}_{i}", a, b) for run, i, a, b in real_chunks(dev)]
+    earlier = EARLIER_ORDERED.get("launch")
+    rows = {}
+    gc.collect()
+    gc.disable()  # a collection inside a timed launch would be charged to it
+    try:
+        for label, a, b in inputs:
+            rows[label] = time_pair(label, a, b, earlier, floor_ms, clock_mhz, max_clock_mhz)
+    finally:
+        gc.enable()
+    real = [r for label, r in rows.items() if label.startswith("iii_")]
+    mean = {k: sum(r[k] for r in real) / len(real)
+            for k in ("ms", "plain_ms", "bytes", "flops", "chain_bound_ms",
+                      "deterministic_index_put_ms", "deterministic_index_add_ms")}
+    bnd, by = bound_ms(mean["bytes"], mean["flops"])
+    # a library call is the row's only where it gave the lane order's bits on every case
+    same = [k for k, g in ORDERED_LIBRARY_GAPS.items() if g["bit_equal"]]
+    # the captured chunks held on the card are done with: later phases that
+    # count the card's live bytes (dryrun (b)) see none of them
+    _REAL_CHUNKS.clear()
+    summary = {label: {k: rows[label][k] for k in ("ms", "was_ms", "max_hits", "chain_bound_ms")}
+               for label in ORDERED_DRAWS}
+    for run in ("b_openloop", "closed_loop"):
+        rs = [r for label, r in rows.items() if label.startswith(f"iii_{run}")]
+        summary[f"iii_{run}"] = dict(
+            ms=sum(r["ms"] for r in rs) / len(rs),
+            was_ms=None if earlier is None else sum(r["was_ms"] for r in rs) / len(rs),
+            max_hits=[r["max_hits"] for r in rs],
+            chain_bound_ms=sum(r["chain_bound_ms"] for r in rs) / len(rs))
+    return dict(ms=mean["ms"], plain_ms=mean["plain_ms"], bound_ms=bnd, bound_by=by,
+                library_ms=mean[f"deterministic_{same[0].strip('_')}_ms"] if same else None,
+                chain_bound_ms=mean["chain_bound_ms"], by_input=summary,
+                sm_clock_mhz=[clock_mhz, max_clock_mhz])
 
 
 def sdpa_backward_ms(q, k, v, do, causal, n_iter=20):
@@ -2930,11 +3234,7 @@ def ssd_runs():
         runs.append((f"a_{G.POLICY_NAMES[pol]}", cfg,
                      ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=1),
                      SSD_CMP_CHUNKS if pol == G.RARO else 0))
-    # (b) experiments/scenarios.py::zipf_openloop's defaults (seed 0)
-    cfg = replace(raro_ssd.MIDDLE, chan_model="lattice", obs_level="full")
-    trace = ssd_workload.attach_arrivals(
-        cfg, ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=0), 50_000.0, seed=1)
-    runs.append(("b_raro_lattice_openloop_50k", cfg, trace, SSD_CMP_CHUNKS))
+    runs.append(("b_raro_lattice_openloop_50k", *ssd_openloop(), SSD_CMP_CHUNKS))
     # (c) configs/raro_ssd.py's endurance geometry, old stage, fault_storm's
     # trace at fault_storm_sweep's rates, parity rebuild, 16 spares, lifespan GC
     storm = raro_ssd.fault_storm_sweep()
@@ -2946,6 +3246,14 @@ def ssd_runs():
     trace = ssd_workload.mixed_trace(cfg, 24_576, 1.2, read_frac=0.3, write_theta=2.0, seed=0)
     runs.append(("c_raro_endurance_fault_storm", cfg, trace, None))
     return runs
+
+
+def ssd_openloop():
+    """(b): experiments/scenarios.py::zipf_openloop's defaults (seed 0), RARO
+    under the lattice timing model at obs_level "full": (config, trace)."""
+    cfg = replace(raro_ssd.MIDDLE, chan_model="lattice", obs_level="full")
+    return cfg, ssd_workload.attach_arrivals(
+        cfg, ssd_workload.zipf_read_trace(cfg, SSD_REQUESTS, 1.2, seed=0), 50_000.0, seed=1)
 
 
 def _ssd_chunks(trace, n=None):
@@ -3035,24 +3343,32 @@ def one_hot_sums(dst, idx, src):
                                       port_ops.drop_index(idx, n).reshape(-1), n)
 
 
+def one_hot_pair(a, b):
+    """``one_hot_sums`` on each segment of the pair, on its rows; each result
+    in its dst's shape and strides."""
+    return tuple(torch.empty_like(d).copy_(one_hot_sums(d.reshape(-1, d.shape[-1]), i, v)
+                                            .reshape(d.shape)) for d, i, v in (a, b))
+
+
 def ssd_parity_rebuild(dev):
     """(d) in lockstep, card against CPU, every chunk by the strict rule, with
-    ``obs_ts`` and ``obs_lat_comp`` bit for bit; 2 ordered_scatter_add
-    launches a chunk on the card (obs "full") and none on the CPU. First the
-    same run with the card's former one-hot sums (``one_hot_sums``), whose
-    largest gaps in those two leaves are measured and not held."""
+    ``obs_ts`` and ``obs_lat_comp`` bit for bit; 1 ordered_scatter_add
+    launch a chunk on the card (obs "full": both sums in one) and none on
+    the CPU. First the same run with the card's former one-hot sums
+    (``one_hot_sums``), whose largest gaps in those two leaves are measured
+    and not held."""
     cfg = ssd_geometry.tiny_config(**PARITY_REBUILD)
     check(cfg.chan_model == "legacy" and cfg.chunk == 128,
           f"(d) expects the legacy channel model and chunks of 128: {cfg.chan_model}, {cfg.chunk}")
     trace = ssd_workload.zipf_read_trace(cfg, PARITY_REBUILD_READS, 1.2, seed=1)
-    real = port_ops.at_add_in_order
-    port_ops.at_add_in_order = one_hot_sums
+    real = port_ops.at_add_in_order, port_ops.at_add_in_order_pair
+    port_ops.at_add_in_order, port_ops.at_add_in_order_pair = one_hot_sums, one_hot_pair
     try:
         n0 = ordered_scatter_add.launches
         before, _ = ssd_lockstep(cfg, trace, None, dev, exact=OBS_SUMS)
         check(ordered_scatter_add.launches == n0, "(d) the one-hot run reached the kernel")
     finally:
-        port_ops.at_add_in_order = real
+        port_ops.at_add_in_order, port_ops.at_add_in_order_pair = real
     n0, t0 = ordered_scatter_add.launches, time.perf_counter()
     cmp, summ = ssd_lockstep(cfg, trace, None, dev, exact=OBS_SUMS)
     wall, launches = time.perf_counter() - t0, ordered_scatter_add.launches - n0
@@ -3060,7 +3376,7 @@ def ssd_parity_rebuild(dev):
           f"(d) the card diverges from the CPU: {cmp}")
     check(all(g["bit_equal"] for g in cmp["exact"].values()),
           f"(d) obs sums not bit-equal to the CPU's: {cmp['exact']}")
-    check(launches == 2 * cmp["chunks"], f"(d) {launches} ordered_scatter_add launches "
+    check(launches == cmp["chunks"], f"(d) {launches} ordered_scatter_add launches "
           f"for {cmp['chunks']} chunks at obs_level full")
     check(summ["rebuilds"] > 0, f"(d) no parity rebuild fired: {summ['rebuilds']}")
     # one launch a chunk at obs_level "counters" (the time series only)
@@ -3094,7 +3410,7 @@ def phase_ssd(dev):
         s, m = ssd_engine.run(cfg, trace, device=dev)
         torch.cuda.synchronize()
         wall, ordered = time.perf_counter() - t0, ordered_scatter_add.launches - n0
-        per_chunk = {"off": 0, "counters": 1, "full": 2}[cfg.obs_level]
+        per_chunk = {"off": 0, "counters": 1, "full": 1}[cfg.obs_level]
         check(ordered == per_chunk * n_chunks, f"{name}: {ordered} ordered_scatter_add launches "
               f"over {n_chunks} chunks at obs_level {cfg.obs_level}")
         peak = torch.cuda.max_memory_allocated()
@@ -4420,8 +4736,14 @@ def main():
         extra = {"quantize_pages": dict(launches_by_path=store_by_path),
                  "ordered_scatter_add": dict(
                      launches_by_path={"ssd": launches["ordered_scatter_add"]},
-                     launches_per_chunk={"full": 2, "counters": 1, "off": 0},
-                     library="torch.index_add on CUDA (atomic adds, no fixed order)"),
+                     launches_per_chunk={"full": 1, "counters": 1, "off": 0},
+                     library=("none bit-equal to the lane order" if times["ordered_scatter_add"]
+                              ["library_ms"] is None else "deterministic " + next(
+                                  k for k, g in ORDERED_LIBRARY_GAPS.items() if g["bit_equal"])),
+                     library_against_lane_order=ORDERED_LIBRARY_GAPS,
+                     chain_bound_ms=times["ordered_scatter_add"]["chain_bound_ms"],
+                     by_input=times["ordered_scatter_add"]["by_input"],
+                     sm_clock_mhz=times["ordered_scatter_add"]["sm_clock_mhz"]),
                  "flash_attention_fwd": dict(
             launches_by_path=by_path, train_bf16=dict(**train_attention["times"], max_abs_err={
                 dt: train_attention[dt]["max_abs_err"] for dt in ("float32", "bfloat16")}),

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu, the forward; flash_attention_bwd.cu, the backward):
+// (flash_attention.cu, the forward; flash_attention_bwd.cu, the backward)
+// and the ordered scatter-add (ordered_scatter_add.cu: mbarriers, bulk copies):
 // wgmma's shared-memory descriptors and its bf16 and tf32 instructions, the
 // split of an f32 operand into two tf32 parts (3xTF32), the warpgroup's
 // fences and waits, the mbarriers of a ring, TMA and bulk copies, and

@@ -12,8 +12,8 @@ Each keeps the reference's semantics where torch's own op would differ:
   run to run. Integer sums and every min and max are exact in any order, so
   they use ``index_add_`` and ``scatter_reduce_``;
 - a float scatter-add whose lanes must add in lane order, as the
-  reference's do (``at_add_in_order``), runs the ``ordered_scatter_add``
-  kernel on CUDA;
+  reference's do (``at_add_in_order``, and two at once in one launch,
+  ``at_add_in_order_pair``), runs the ``ordered_scatter_add`` kernel on CUDA;
 - ``top_k`` breaks ties to the lowest index, as ``lax.top_k`` does, by a
   stable descending sort: ``torch.topk`` promises no order among ties.
 
@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.ordered_scatter_add.ordered_scatter_add import ordered_scatter_add
+from repro_torch.kernels.ordered_scatter_add.ordered_scatter_add import (
+    ordered_scatter_add, ordered_scatter_add_pair)
 
 
 def recip32(c: float) -> float:
@@ -72,13 +73,15 @@ def _extended(dst):
     return torch.cat([dst, dst.new_zeros((1, *dst.shape[1:]))])
 
 
-def _rows(src, idx, dst):
-    """``src`` broadcast to one row of ``dst`` per index, flattened."""
+def _rows(src, idx, dst, row=None):
+    """``src`` broadcast to one row of ``dst`` (of shape ``row``, by default
+    dst's trailing dims) per index, flattened."""
+    row = dst.shape[1:] if row is None else row
     if isinstance(src, torch.Tensor):
         src = src.to(dst.dtype)
     else:  # filled on the device: a host scalar would be a copy the host waits on
         src = torch.full((), src, dtype=dst.dtype, device=dst.device)
-    return src.broadcast_to((*idx.shape, *dst.shape[1:])).reshape(-1, *dst.shape[1:])
+    return src.broadcast_to((*idx.shape, *row)).reshape(-1, *row)
 
 
 def at_set(dst, idx, src):
@@ -114,6 +117,20 @@ def at_add_in_order(dst, idx, src):
     n = dst.shape[0]
     return ordered_scatter_add(dst.contiguous(), drop_index(idx, n).reshape(-1),
                                _rows(src, idx, dst).contiguous())
+
+
+def at_add_in_order_pair(a, b):
+    """Two ``at_add_in_order``s, each of ``a`` and ``b`` a (dst, idx, src), in
+    one ``ordered_scatter_add`` launch on CUDA. A dst's rows are all its dims
+    but the last, flattened in order (at most two, at any strides), so that
+    a state leaf is read and written in its own layout; each result has its
+    dst's shape and strides."""
+    segs = []
+    for dst, idx, src in (a, b):
+        n = dst.numel() // max(dst.shape[-1], 1)
+        segs.append((dst, drop_index(idx, n).reshape(-1),
+                     _rows(src, idx, dst, dst.shape[-1:]).contiguous()))
+    return ordered_scatter_add_pair(*segs)
 
 
 def _at_reduce(dst, idx, src, how):

@@ -14,11 +14,12 @@ accumulator leaves of :class:`repro_torch.ssdsim.state.SSDState`:
 
 ``cfg.obs_level`` "off" runs no observability op and keeps every obs leaf
 zero-length. Float sums of per-read values go through
-``ops.at_add_in_order``, which adds each lane into the state in lane order,
-as the reference's scatter-adds do: on the card by the
-``ordered_scatter_add`` kernel (``index_add_``'s atomics there take no
-fixed order), on the CPU by ``index_add_``, serial there. Counts add
-exactly in any order.
+``ops.at_add_in_order`` (at ``"counters"``) and ``ops.at_add_in_order_pair``
+(at ``"full"``, both sums at once), which add each lane into the state in
+lane order, as the reference's scatter-adds do: on the card by the
+``ordered_scatter_add`` kernel, one launch a chunk (``index_add_``'s
+atomics there take no fixed order), on the CPU by ``index_add_``, serial
+there. Counts add exactly in any order.
 Host-side decoders (numpy, on tensors or numpy leaves) are at the bottom.
 """
 
@@ -138,8 +139,8 @@ def record_reads(s, cfg: geometry.SimConfig, *, mode, rd, lat_us, queue_us,
 
     # time series: reads / retries / queue per window of each read's own
     # time. The float sums here add each lane into the state in lane order
-    # (ops.at_add_in_order), as the reference's scatter-adds do: a
-    # per-chunk sum added afterwards rounds otherwise, and in a cell that
+    # (ops.at_add_in_order and its pair), as the reference's scatter-adds
+    # do: a per-chunk sum added afterwards rounds otherwise, and in a cell that
     # collects most reads the difference grows past 1e-5 within a run
     w = torch.where(rd, _window_of(cfg, t_ms).long(), n_win)
     series = {TS_READS: torch.ones_like(lat_us, dtype=torch.float32),
@@ -150,18 +151,16 @@ def record_reads(s, cfg: geometry.SimConfig, *, mode, rd, lat_us, queue_us,
     vals = torch.zeros((w.shape[0], N_SERIES), dtype=torch.float32, device=w.device)
     for row, v in series.items():
         vals[:, row] = v
-    ts = ops.at_add_in_order(s.obs_ts, w, vals)
-    s = s._replace(obs_lat_mode=lat_mode, obs_ts=ts)
-
     if not full(cfg):
-        return s
+        return s._replace(obs_lat_mode=lat_mode, obs_ts=ops.at_add_in_order(s.obs_ts, w, vals))
     comps = [queue_us, sense_us, retry_us, chanw_us, xfer_us]
     comps.append(rebuild_us if rebuild_us is not None else torch.zeros_like(queue_us))
-    # the state's (mode, component, bin) as (mode * bin, component) rows
-    comp = s.obs_lat_comp.permute(0, 2, 1).reshape(modes.N_MODES * nbin, N_COMPONENTS)
-    comp = ops.at_add_in_order(comp, cell, torch.stack([c.float() for c in comps], dim=1))
-    comp = comp.reshape(modes.N_MODES, nbin, N_COMPONENTS).permute(0, 2, 1).contiguous()
-    return s._replace(obs_lat_comp=comp)
+    # both sums in one launch; the state's (mode, component, bin) taken as it
+    # lies, its (mode, bin) pairs as the rows that ``cell`` names
+    ts, comp = ops.at_add_in_order_pair(
+        (s.obs_ts, w, vals),
+        (s.obs_lat_comp.permute(0, 2, 1), cell, torch.stack([c.float() for c in comps], dim=1)))
+    return s._replace(obs_lat_mode=lat_mode, obs_ts=ts, obs_lat_comp=comp.permute(0, 2, 1))
 
 
 def record_chunk(s, cfg: geometry.SimConfig, *, t_ms, writes, conversions,

@@ -288,3 +288,67 @@ class TestLevelsAndSummarize:
         m = engine.summarize(s, cfg)
         back = json.loads(json.dumps(m))
         assert back == m  # floats/lists only -> exact round trip
+
+
+# ---------------------------------------------------------------------------
+# record_reads itself against the reference's, on the same lanes
+# ---------------------------------------------------------------------------
+
+def _read_lanes(cfg, seed, clock):
+    """One chunk of read lanes drawn by numpy: modes (one out of range),
+    a read mask, latencies of mixed magnitudes and their components,
+    retries, uncorrectable flags, and each lane's time: the chunk's one
+    clock (closed loop: every read in one window) or departures spread over
+    a few windows (open loop)."""
+    rng = np.random.default_rng(seed)
+    n = cfg.chunk
+    us = lambda: (10.0 ** rng.uniform(0.5, 4.5, n)).astype(np.float32)  # noqa: E731
+    mode = rng.integers(0, modes.N_MODES, n).astype(np.int32)
+    mode[3] = modes.N_MODES + 1
+    # open loop: sorted departures over about three windows
+    w = cfg.obs_window_ms
+    t_ms = (np.full(n, clock) if clock is not None
+            else np.sort(rng.uniform(0.4 * w, 3.4 * w, n))).astype(np.float32)
+    return dict(mode=mode, rd=rng.random(n) < 0.85, lat_us=us(), queue_us=us(), sense_us=us(),
+                retry_us=us(), chanw_us=us(), xfer_us=us(),
+                retries=rng.integers(0, 6, n).astype(np.int32), t_ms=t_ms,
+                uncorr=rng.random(n) < 0.05, rebuild_us=us())
+
+
+@pytest.mark.parametrize("level", ["full", "counters"])
+@pytest.mark.parametrize("loop", ["closed", "open"])
+def test_record_reads_equals_the_references(level, loop):
+    """``obs.record_reads`` on the CPU bit for bit the reference's (jitted,
+    as its engine runs it) on the same lanes and the same nonzero
+    accumulators: the per-mode histogram, the time series and, at "full",
+    the component sums (with the rebuild component in the closed loop,
+    without it in the open one)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.ssdsim import obs as j_obs
+    from repro.ssdsim import state as j_st
+    from torch_twins import reference_config
+
+    cfg = _full_cfg(obs_level=level, obs_windows=16)
+    j_cfg = reference_config(cfg)
+    lanes = _read_lanes(cfg, 17 if loop == "closed" else 18,
+                        3.3 * cfg.obs_window_ms if loop == "closed" else None)
+    if loop == "open":
+        lanes.pop("rebuild_us")
+    rng = np.random.default_rng(19)
+    s = st.init_state(cfg, device=CPU)
+    acc = {k: (rng.standard_normal(tuple(getattr(s, k).shape)) * 1e3).astype(np.float32)
+           for k in ("obs_ts", "obs_lat_comp")}
+    s = s._replace(**{k: torch.from_numpy(v) for k, v in acc.items()})
+    js = j_st.init_state(j_cfg)._replace(**{k: jnp.asarray(v) for k, v in acc.items()})
+    got = obs.record_reads(s, cfg, **{k: torch.from_numpy(v) for k, v in lanes.items()})
+    want = jax.jit(lambda js_, kw: j_obs.record_reads(js_, j_cfg, **kw))(
+        js, {k: jnp.asarray(v) for k, v in lanes.items()})
+    for leaf in ("obs_lat_mode", "obs_ts", "obs_lat_comp"):
+        np.testing.assert_array_equal(getattr(got, leaf).numpy(), np.asarray(getattr(want, leaf)),
+                                      err_msg=leaf)
+    assert got.obs_lat_comp.is_contiguous()
+    if loop == "closed":  # every read in window 3: its row takes them all
+        added = got.obs_ts[:, obs.TS_READS].double() - s.obs_ts[:, obs.TS_READS].double()
+        assert round(float(added[3])) == int(lanes["rd"].sum()) and float(added.abs().sum()) == \
+            pytest.approx(float(added[3]))
