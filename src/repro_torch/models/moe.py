@@ -34,7 +34,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch import ops
+from repro_torch import ops, spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.mesh import get_mesh
 from repro_torch.models import attention as attn
@@ -156,61 +156,77 @@ def moe_apply(p, x, cfg: ModelConfig):
     replicated router, the dispatched rows and the combine weights enter
     through ``replicated`` (their cotangents are partial on each rank), and
     the ranks' combined outputs are summed.
+
+    Its spans (``repro_torch.spans``): ``moe.route`` (the router and the aux
+    loss), ``moe.dispatch`` (the capacity slots and the rows' scatter),
+    ``moe.experts``, ``moe.combine`` (the weighted sum, the ranks' sum and
+    the shared experts) and ``moe.backward`` (the layer's backward); its
+    counters ``moe.kept`` (assignments kept after the capacity drop, summed
+    on the device) and ``moe.assigned`` (N·K).
     """
+    x, mark_output = spans.backward_span("moe.backward", x)
     b, s, d = x.shape
     n = b * s
     k = cfg.top_k
     e = cfg.n_experts
     xf = x.reshape(n, d)
 
-    probs, w, idx = _route(xf, p["router"], k)  # (N, E), (N, K), (N, K)
+    with spans.span("moe.route"):
+        probs, w, idx = _route(xf, p["router"], k)  # (N, E), (N, K), (N, K)
 
-    # Switch-style load-balance auxiliary loss (a fixed-order sum, no atomics).
-    me = probs.mean(0)
-    ce = ops.segment_sum(w.reshape(-1), idx.reshape(-1), e) / n
-    data = _data_group()
-    if data is not None:
-        me, ce = C.pmean(me, data, partial=True), C.pmean(ce, data, partial=True)
-    aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
+        # Switch-style load-balance auxiliary loss (a fixed-order sum, no atomics).
+        me = probs.mean(0)
+        ce = ops.segment_sum(w.reshape(-1), idx.reshape(-1), e) / n
+        data = _data_group()
+        if data is not None:
+            me, ce = C.pmean(me, data, partial=True), C.pmean(ce, data, partial=True)
+        aux = cfg.aux_loss_coef * e * torch.sum(me * ce)
 
     # ---- sort-based dispatch with capacity ----
     # Kept in (token, k) order: an assignment's rank among its expert's is
     # found by the stable sort and carried back, so that each token's row goes
     # to its K slots as one broadcast (whose gradient is a sum over K, where
     # a gather of the row K times would scatter-add it back).
-    if data is None:
-        cap = capacity(cfg, n)
-        slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
-    else:
-        flat = idx.reshape(-1).long()
-        before = C.sum_before(torch.zeros(e, dtype=torch.int64, device=x.device)
-                              .scatter_add_(0, flat, torch.ones_like(flat)), data)
-        glob = capacity(cfg, n * dist.get_world_size(data))
-        cap = min(glob, n)  # a token takes an expert once
-        slot = _slots(idx, e, glob, before, cap)  # (N, K); e*cap: dropped
+    with spans.span("moe.dispatch"):
+        if data is None:
+            cap = capacity(cfg, n)
+            slot = _slots(idx, e, cap)  # (N, K); e*cap: dropped
+        else:
+            flat = idx.reshape(-1).long()
+            before = C.sum_before(torch.zeros(e, dtype=torch.int64, device=x.device)
+                                  .scatter_add_(0, flat, torch.ones_like(flat)), data)
+            glob = capacity(cfg, n * dist.get_world_size(data))
+            cap = min(glob, n)  # a token takes an expert once
+            slot = _slots(idx, e, glob, before, cap)  # (N, K); e*cap: dropped
+        if spans.on():
+            spans.count("moe.kept", (slot < e * cap).sum())
+            spans.count("moe.assigned", n * k)
 
-    e_loc = p["w_in"].shape[0]
-    e_group = tensor.split_group(e_loc, e)
-    group = e_group if e_group is not None else tensor.split_group(p["w_in"].shape[-1],
-                                                                   cfg.moe_d_ff)
-    xd = xf
-    if group is not None:
-        xd, w = C.replicated(xf, group), C.replicated(w, group)
-    if e_group is not None:  # this rank's experts' rows; the others' dropped here
-        lo = tensor.rank(e_group) * e_loc * cap
-        slot = torch.where((slot >= lo) & (slot < lo + e_loc * cap), slot - lo, e_loc * cap)
+        e_loc = p["w_in"].shape[0]
+        e_group = tensor.split_group(e_loc, e)
+        group = e_group if e_group is not None else tensor.split_group(p["w_in"].shape[-1],
+                                                                       cfg.moe_d_ff)
+        xd = xf
+        if group is not None:
+            xd, w = C.replicated(xf, group), C.replicated(w, group)
+        if e_group is not None:  # this rank's experts' rows; the others' dropped here
+            lo = tensor.rank(e_group) * e_loc * cap
+            slot = torch.where((slot >= lo) & (slot < lo + e_loc * cap), slot - lo, e_loc * cap)
 
-    buf = ops.at_set(x.new_zeros((e_loc * cap, d)), slot, xd[:, None])
-    yb = _experts(buf.reshape(e_loc, cap, d), p["w_in"], p["w_gate"], p["w_out"], x.dtype)
+        buf = ops.at_set(x.new_zeros((e_loc * cap, d)), slot, xd[:, None])
+    with spans.span("moe.experts"):
+        yb = _experts(buf.reshape(e_loc, cap, d), p["w_in"], p["w_gate"], p["w_out"], x.dtype)
 
     # ---- combine: the reference scatter-adds in sorted (expert-id) order ----
-    y = _combine(yb.reshape(e_loc * cap, d), slot, w, idx)
-    if group is not None:
-        y = C.psum(y, group)
+    with spans.span("moe.combine"):
+        y = _combine(yb.reshape(e_loc * cap, d), slot, w, idx)
+        if group is not None:
+            y = C.psum(y, group)
 
-    if cfg.n_shared_experts:
-        y = y + L.mlp(p["shared"], xf, cfg.act, _shared_group(p, cfg)).float()
-    return y.reshape(b, s, d).to(x.dtype), aux
+        if cfg.n_shared_experts:
+            y = y + L.mlp(p["shared"], xf, cfg.act, _shared_group(p, cfg)).float()
+        y = y.reshape(b, s, d).to(x.dtype)
+    return mark_output(y), aux
 
 
 def _shared_group(p, cfg: ModelConfig):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kvcache import quant
@@ -252,29 +253,41 @@ def prefill(params, batch, cfg: ModelConfig):
 
     batch: {"tokens": (B, S) int}, and for ``vlm`` "img_embeds": (B, N, D),
     prepended as in ``forward``. Returns (last-position logits (B, 1, V),
-    cache dict), the cache exactly ``cache_len(cfg, N + S)`` long.
+    cache dict), the cache exactly ``cache_len(cfg, N + S)`` long. Its
+    spans (``repro_torch.spans``): ``prefill.embed``, each layer's
+    ``prefill.qkv``, ``prefill.attention``, ``prefill.out`` and
+    ``prefill.mlp``, then ``prefill.head`` and ``prefill.cache``.
     """
-    x = _embed_inputs(params, batch, cfg)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)
+    with spans.span("prefill.embed"):
+        x = _embed_inputs(params, batch, cfg)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)
     ks, vs = [], []
     for lp in params["layers"]:
-        xn = norm(cfg, lp["ln1"], x)
-        q, k, v = qkv(lp["attn"], xn, cfg, positions)
-        o = prefill_attention(q, k, v, cfg)
-        h = x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"])
-        x = h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
+        with spans.span("prefill.qkv"):
+            xn = norm(cfg, lp["ln1"], x)
+            q, k, v = qkv(lp["attn"], xn, cfg, positions)
+        with spans.span("prefill.attention"):
+            o = prefill_attention(q, k, v, cfg)
+        with spans.span("prefill.out"):
+            h = x + L.matmul(o.reshape(b, s, -1), lp["attn"]["wo"])
+        with spans.span("prefill.mlp"):
+            x = h + L.mlp(lp["mlp"], norm(cfg, lp["ln2"], h), cfg.act)
         ks.append(k)
         vs.append(v)
-    x = norm(cfg, params["ln_f"], x)
-    logits = L.lm_logits(params["embed"], x[:, -1:], cfg.vocab)
-    w = cache_len(cfg, s)
-    ks, vs = torch.stack(ks)[:, :, -w:], torch.stack(vs)[:, :, -w:]
-    if cfg.kv_bits == 16:
-        return logits, {"k": ks, "v": vs}
-    qk, sk = quant_kv(ks, cfg.kv_bits)
-    qv, sv = quant_kv(vs, cfg.kv_bits)
-    return logits, {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    with spans.span("prefill.head"):
+        x = norm(cfg, params["ln_f"], x)
+        logits = L.lm_logits(params["embed"], x[:, -1:], cfg.vocab)
+    with spans.span("prefill.cache"):
+        w = cache_len(cfg, s)
+        ks, vs = torch.stack(ks)[:, :, -w:], torch.stack(vs)[:, :, -w:]
+        if cfg.kv_bits == 16:
+            cache = {"k": ks, "v": vs}
+        else:
+            qk, sk = quant_kv(ks, cfg.kv_bits)
+            qv, sv = quant_kv(vs, cfg.kv_bits)
+            cache = {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return logits, cache
 
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import registry
 
@@ -18,9 +19,11 @@ def make_prefill(cfg: ModelConfig):
     api = registry.get_api(cfg)
 
     def prefill(params, batch):
-        """batch: {"tokens": (B, S)} -> (next token (B,) int32, cache)."""
-        logits, cache = api.prefill(params, batch)
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        """batch: {"tokens": (B, S)} -> (next token (B,) int32, cache); one
+        ``prefill`` span (``repro_torch.spans``) over it all."""
+        with spans.span("prefill"):
+            logits, cache = api.prefill(params, batch)
+            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, cache
 
     return prefill

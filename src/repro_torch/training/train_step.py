@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import base, registry
 from repro_torch.parallel import collectives as C
@@ -28,8 +29,10 @@ def value_and_grad(loss_fn, params, batch, idle=()):
     paths = list(base.tree_paths(params))
     with torch.enable_grad():
         leaves = [p.detach().requires_grad_() for p in base.tree_leaves(params)]
-        loss = loss_fn(base.tree_unflatten(params, leaves), batch)
-        grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
+        with spans.span("train.forward"):
+            loss = loss_fn(base.tree_unflatten(params, leaves), batch)
+        with spans.span("train.backward"):
+            grads = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     for i, (path, g) in enumerate(zip(paths, grads)):
         if g is None:
             if not any(path.startswith(f"{sub}.") for sub in idle):
@@ -71,29 +74,32 @@ def make_train_step(cfg: ModelConfig, ocfg: optim.AdamWConfig, microbatches: int
         group = mesh.group("model") if any(split) else None
 
     def train_step(params, opt_state, batch):
-        if microbatches == 1:
-            loss, grads = value_and_grad(loss_fn, params, batch, api.idle_params)
-        else:
-            b = batch["tokens"].shape[0]
-            if b % microbatches:
-                raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
-            grads = base.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                        device=p.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
-            for mbatch in zip(*(torch.chunk(x, microbatches) for x in batch.values())):
-                l, g = value_and_grad(loss_fn, params, dict(zip(batch, mbatch)),
-                                      api.idle_params)
-                for acc, gi in zip(base.tree_leaves(grads), base.tree_leaves(g)):
-                    acc.add_(gi.float())
-                loss = loss + l
-            grads = base.tree_map(lambda g: g / microbatches, grads)
-            loss = loss / microbatches
+        with spans.span("train.step"):
+            if microbatches == 1:
+                loss, grads = value_and_grad(loss_fn, params, batch, api.idle_params)
+            else:
+                b = batch["tokens"].shape[0]
+                if b % microbatches:
+                    raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
+                grads = base.tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                            device=p.device), params)
+                loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+                for mbatch in zip(*(torch.chunk(x, microbatches) for x in batch.values())):
+                    l, g = value_and_grad(loss_fn, params, dict(zip(batch, mbatch)),
+                                          api.idle_params)
+                    for acc, gi in zip(base.tree_leaves(grads), base.tree_leaves(g)):
+                        acc.add_(gi.float())
+                    loss = loss + l
+                grads = base.tree_map(lambda g: g / microbatches, grads)
+                loss = loss / microbatches
 
-        if data_ranks > 1:
-            loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
-            grads = base.tree_unflatten(grads, leaves)
-        params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state, split, group)
-        metrics["loss"] = loss
-        return params, opt_state, metrics
+            if data_ranks > 1:
+                loss, *leaves = C.mean_over([loss, *base.tree_leaves(grads)], mesh.data_group)
+                grads = base.tree_unflatten(grads, leaves)
+            with spans.span("train.optimizer"):
+                params, opt_state, metrics = optim.update(ocfg, params, grads, opt_state, split,
+                                                          group)
+            metrics["loss"] = loss
+            return params, opt_state, metrics
 
     return train_step
